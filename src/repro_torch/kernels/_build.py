@@ -10,7 +10,8 @@ The library lands in ``kernels/build/`` (git-ignored) under a name that
 hashes its sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Only the sources in the package are
 compiled. A build that fails raises with nvcc's output; nothing falls back
-to the plain version.
+to the plain version. ``check_tensor`` is the argument check every wrapper
+makes before it passes a pointer to its library.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "build"
@@ -33,6 +36,22 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def check_tensor(kernel: str, name: str, x, dtype, shape, device) -> None:
+    """Raise ``ValueError`` unless ``x`` is a contiguous CUDA tensor of
+    ``dtype`` and ``shape`` on ``device``: ctypes passes only its pointer."""
+    if not isinstance(x, torch.Tensor) or not x.is_cuda:
+        raise ValueError(f"{kernel}: {name} must be a CUDA tensor")
+    if x.device != device:
+        raise ValueError(f"{kernel}: {name} is on {x.device}, not {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} is {x.dtype}, not {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{kernel}: {name} has shape {tuple(x.shape)}, "
+                         f"not {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def _sources(name: str) -> list[Path]:

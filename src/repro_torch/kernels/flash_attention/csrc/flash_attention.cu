@@ -1,0 +1,296 @@
+// Causal / sliding-window / soft-capped GQA attention (prefill), for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py::
+// flash_attention (Pallas body _attn_kernel). It computes what the plain
+// version kernels/flash_attention/ref.py::attention_ref computes:
+//
+//   s   = (q . k) * hd^-0.5, then tanh(s / softcap) * softcap if softcap > 0;
+//   s   = NEG_INF (-1e30) where the key is masked: k_pos > q_pos (causal),
+//         q_pos - k_pos >= window (window > 0), or k_pos >= S (ragged edge);
+//   out = softmax(s) v, with f32 accumulation, written in the input type.
+//
+// q is [B,H,S,hd], k and v are [B,K,S,hd], all contiguous; query head h
+// reads kv head h / (H / K). Element type float or bf16 (converted with
+// __bfloat162float / __float2bfloat16); hd in {32, 64, 128, 256}.
+//
+// Design: one block of 256 threads per (b, h, tile of 64 query rows). The
+// TPU kernel's sequential k grid axis, whose running max m, normaliser l and
+// accumulator acc lived in VMEM scratch, becomes a loop over tiles of 64 keys
+// inside the block; m, l and acc live in registers. Only the key tiles that
+// the causal and window masks leave partly visible are visited. The block's
+// q tile and each k and v tile are converted to f32 into shared memory (rows
+// of q and k padded by one float, so the 16 lanes that read 16 key rows hit
+// 16 banks); a thread holds a 4 x 4 block of the 64 x 64 score tile and a
+// 4 x hd/16 block of acc. Row max and row sum are reduced across the 16
+// lanes of a row with warp shuffles; p goes through shared memory to the PV
+// product. A masked score contributes p = 0, so a row with no visible key in
+// a tile leaves its m, l and acc as they were. The final division uses
+// max(l, 1e-30), as the reference does. At hd=256 the tiles take 213,760
+// bytes of dynamic shared memory (over 48 KB, so the launch raises the
+// limit with cudaFuncAttributeMaxDynamicSharedMemorySize). The ragged S edge
+// is masked in the kernel: key rows past S load as zero and are masked,
+// query rows past S are not stored.
+//
+// Arithmetic is f32 on the CUDA cores: the dot products are explicit fmaf,
+// expf and tanhf are the accurate libdevice versions. The library is built
+// with the same flags as every kernel of the port (kernels/_build.py:
+// -O3 --fmad=false, never --use_fast_math); --fmad=false only stops the
+// compiler from contracting the few separate multiplies and adds of the
+// softmax update, which the reference rounds separately too.
+//
+// Bound on the H100: at the long shapes (S = 4096-8192) the work is
+// 4 * hd * (visible score entries) * B * H FLOPs, which at the 989 TFLOP/s
+// bf16 tensor-core rate takes 69-278 us; the bytes of q, k, v and o take a
+// few us at 3.35 TB/s. This first version leaves the tensor cores idle: it
+// runs on the CUDA cores (67 TFLOP/s f32 at best) out of shared memory, so
+// it is expected to be one to two orders of magnitude off that bound.
+// wgmma, TMA and a warp-specialised pipeline are later work. At the waste
+// pipeline's shapes (B=1, H=8, S <= 233, hd=64) a launch moves under 1 MB
+// and does 0.03 GFLOP: the launch latency bounds it. Measured by
+// chip_smoke.py (NVIDIA H100 80GB HBM3, 700 W): 3.2 ms at qwen2.5-3b's
+// S 4096 and 10-14 ms at gemma2-2b's S 8192, 20-21 TFLOP/s, 47-49x off the
+// bound; 45 us a launch at the waste pipeline's shapes.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBQ = 64;             // query rows per block
+constexpr int kBK = 64;             // key rows per tile
+constexpr int kTX = 16;             // lanes across a row of the score tile
+constexpr int kTY = 16;             // thread rows
+constexpr int kThreads = kTX * kTY;
+constexpr int kRows = kBQ / kTY;    // query rows per thread
+constexpr int kCols = kBK / kTX;    // keys per thread in a tile
+constexpr float kNegInf = -1e30f;   // NEG_INF of the reference
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  return sizeof(float) *
+         (size_t(kBQ) * (HD + 1) + size_t(kBK) * (HD + 1) + size_t(kBK) * HD +
+          size_t(kBQ) * (kBK + 1));
+}
+
+__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
+                                        int window) {
+  return kpos < S && (!causal || qpos >= kpos) &&
+         (window <= 0 || qpos - kpos < window);
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int H, int group, int S, int causal, int window,
+    float scale, float softcap) {
+  constexpr int QS = HD + 1;        // padded row stride of the q and k tiles
+  constexpr int PS = kBK + 1;       // padded row stride of the p tile
+  constexpr int kDims = HD / kTX;   // output columns per thread
+  extern __shared__ float smem[];
+  float* sQ = smem;                 // [kBQ][QS]
+  float* sK = sQ + kBQ * QS;        // [kBK][QS]
+  float* sV = sK + kBK * QS;        // [kBK][HD]
+  float* sP = sV + kBK * HD;        // [kBQ][PS]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % kTX, ty = tid / kTX;
+  const int n_qt = (S + kBQ - 1) / kBQ;
+  const int q0 = (n_qt - 1 - blockIdx.x) * kBQ;   // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long q_base = ((long long)b * H + h) * S * HD;
+  const long long kv_base =
+      ((long long)b * (H / group) + h / group) * S * HD;
+
+  for (int i = tid; i < kBQ * HD; i += kThreads) {
+    const int r = i / HD, c = i % HD;
+    const int qpos = q0 + r;
+    sQ[r * QS + c] =
+        qpos < S ? to_f32(q[q_base + (long long)qpos * HD + c]) : 0.0f;
+  }
+
+  float m[kRows], l[kRows], acc[kRows][kDims];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < kDims; ++d) acc[i][d] = 0.0f;
+  }
+
+  // key tiles with at least one visible entry for some row of this block
+  const int q_last = min(q0 + kBQ, S) - 1;
+  const int k_end = causal ? q_last + 1 : S;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int kt_end = (k_end + kBK - 1) / kBK;
+
+  for (int kt = k_begin / kBK; kt < kt_end; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();   // q is stored; the last tile's readers are done
+    for (int i = tid; i < kBK * HD; i += kThreads) {
+      const int r = i / HD, c = i % HD;
+      const int kpos = k0 + r;
+      const long long off = kv_base + (long long)kpos * HD + c;
+      sK[r * QS + c] = kpos < S ? to_f32(k[off]) : 0.0f;
+      sV[r * HD + c] = kpos < S ? to_f32(v[off]) : 0.0f;
+    }
+    __syncthreads();
+
+    float s[kRows][kCols];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) s[i][j] = 0.0f;
+#pragma unroll 8
+    for (int d = 0; d < HD; ++d) {
+      float qv[kRows], kv[kCols];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) qv[i] = sQ[(ty + kTY * i) * QS + d];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) kv[j] = sK[(tx + kTX * j) * QS + d];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int r = ty + kTY * i;
+      const int qpos = q0 + r;
+      float row_max = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        float x = s[i][j] * scale;
+        if (softcap > 0.0f) x = tanhf(x / softcap) * softcap;
+        s[i][j] = visible(qpos, k0 + tx + kTX * j, S, causal, window)
+                      ? x : kNegInf;
+        row_max = fmaxf(row_max, s[i][j]);
+      }
+#pragma unroll
+      for (int off = kTX / 2; off > 0; off >>= 1)
+        row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
+      const float m_new = fmaxf(m[i], row_max);
+      const float alpha = expf(m[i] - m_new);
+      float row_sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int kpos = k0 + tx + kTX * j;
+        const float p = visible(qpos, kpos, S, causal, window)
+                            ? expf(s[i][j] - m_new) : 0.0f;
+        sP[r * PS + tx + kTX * j] = p;
+        row_sum += p;
+      }
+#pragma unroll
+      for (int off = kTX / 2; off > 0; off >>= 1)
+        row_sum += __shfl_xor_sync(0xffffffffu, row_sum, off);
+      l[i] = alpha * l[i] + row_sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int d = 0; d < kDims; ++d) acc[i][d] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int kk = 0; kk < kBK; ++kk) {
+      float pv[kRows], vv[kDims];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) pv[i] = sP[(ty + kTY * i) * PS + kk];
+#pragma unroll
+      for (int d = 0; d < kDims; ++d) vv[d] = sV[kk * HD + tx + kTX * d];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int d = 0; d < kDims; ++d)
+          acc[i][d] = fmaf(pv[i], vv[d], acc[i][d]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int qpos = q0 + ty + kTY * i;
+    if (qpos >= S) continue;
+    const float denom = fmaxf(l[i], 1e-30f);
+    T* row = o + q_base + (long long)qpos * HD;
+#pragma unroll
+    for (int d = 0; d < kDims; ++d)
+      store(row + tx + kTX * d, acc[i][d] / denom);
+  }
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+           int K, int S, int causal, int window, float scale, float softcap,
+           cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<T, HD>;
+  constexpr size_t smem = smem_bytes<HD>();
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), H, H / K, S, causal,
+      window, scale, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
+              int B, int H, int K, int S, int causal, int window, float scale,
+              float softcap, cudaStream_t stream) {
+  switch (hd) {
+    case 32:
+      return launch<T, 32>(q, k, v, o, B, H, K, S, causal, window, scale,
+                           softcap, stream);
+    case 64:
+      return launch<T, 64>(q, k, v, o, B, H, K, S, causal, window, scale,
+                           softcap, stream);
+    case 128:
+      return launch<T, 128>(q, k, v, o, B, H, K, S, causal, window, scale,
+                            softcap, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, o, B, H, K, S, causal, window, scale,
+                            softcap, stream);
+    default:
+      return -1;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches one attention over q [B,H,S,hd], k and v [B,K,S,hd] into o
+// [B,H,S,hd], on `stream`. is_bf16: 0 for float, 1 for bf16. Returns the
+// cudaGetLastError() code of the launch (0 on success), or -1 for an hd this
+// file was not instantiated for.
+int flash_attention_launch(const void* q, const void* k, const void* v,
+                           void* o, int B, int H, int K, int S, int hd,
+                           int is_bf16, int causal, int window, float scale,
+                           float softcap, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, K, S, causal,
+                                    window, scale, softcap, st);
+  return launch_hd<float>(hd, q, k, v, o, B, H, K, S, causal, window, scale,
+                          softcap, st);
+}
+
+const char* flash_attention_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

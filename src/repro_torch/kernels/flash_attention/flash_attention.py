@@ -1,0 +1,85 @@
+"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+
+Replaces the TPU kernel
+``repro/kernels/flash_attention/flash_attention.py::flash_attention``.
+One launch computes causal or bidirectional GQA attention with an optional
+sliding window and tanh soft-cap for every (batch, head, query tile), at any
+sequence length: the kernel masks its own ragged edge.
+
+The kernel is built with ``nvcc`` on first use (``kernels/_build.py``) and
+called through ``ctypes`` on PyTorch's current stream. It takes CUDA
+tensors only; anything else raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: kernel launches since the last reset (one per attention layer a forward)
+launches = 0
+
+HEAD_DIMS = (32, 64, 128, 256)   # instantiated in the .cu
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_ARGTYPES = [_P] * 4 + [_I] * 8 + [_F, _F, _P]   # as in flash_attention_launch
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("flash_attention")
+    if lib.flash_attention_launch.argtypes is None:
+        lib.flash_attention_launch.argtypes = _ARGTYPES
+        lib.flash_attention_launch.restype = ctypes.c_int
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """q: [B,H,S,hd]; k, v: [B,K,S,hd] (K divides H), contiguous, f32 or
+    bf16, on one CUDA device -> [B,H,S,hd] in q's dtype. ``window`` > 0
+    keeps keys with ``q_pos - k_pos < window``; ``softcap`` > 0 applies
+    ``tanh(s / softcap) * softcap`` to the scaled scores."""
+    global launches
+    if not isinstance(q, torch.Tensor) or not q.is_cuda:
+        raise ValueError("flash_attention runs on CUDA tensors only; use "
+                         "attention_ref for tensors on the host")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("flash_attention: q, k and v must be 4-d")
+    B, H, S, hd = q.shape
+    K = k.shape[1]
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention: unsupported dtype {q.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    if K < 1 or H % K:
+        raise ValueError(f"flash_attention: {H} query heads are not a "
+                         f"multiple of {K} kv heads")
+    if B < 1 or S < 1:
+        raise ValueError(f"flash_attention: empty input {tuple(q.shape)}")
+    dev = q.device
+    for name, x, heads in (("q", q, H), ("k", k, K), ("v", v, K)):
+        _build.check_tensor("flash_attention", name, x, q.dtype,
+                            (B, heads, S, hd), dev)
+    out = torch.empty_like(q)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, K, S, hd, _DTYPES[q.dtype], int(bool(causal)),
+            max(int(window), 0), hd ** -0.5, float(softcap), stream,
+        )
+    if rc != 0:
+        msg = ("unsupported head dim" if rc < 0
+               else lib.flash_attention_error_string(rc).decode())
+        raise RuntimeError(f"flash_attention launch failed ({rc}): {msg}")
+    launches += 1
+    return out

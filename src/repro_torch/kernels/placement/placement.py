@@ -46,20 +46,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(name, x, dtype, shape, device):
-    if not isinstance(x, torch.Tensor) or not x.is_cuda:
-        raise ValueError(f"fused_place: {name} must be a CUDA tensor")
-    if x.device != device:
-        raise ValueError(f"fused_place: {name} is on {x.device}, not {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"fused_place: {name} is {x.dtype}, not {dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"fused_place: {name} has shape {tuple(x.shape)}, "
-                         f"not {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"fused_place: {name} must be contiguous")
-
-
 def fused_place(t1, t2, valid, min_dur, q1, dl, src, do, *,
                 cfg_pref: int = 1, cfg_fallback: int = 2):
     """One fused placement attempt for the whole batch in one launch.
@@ -80,14 +66,14 @@ def fused_place(t1, t2, valid, min_dur, q1, dl, src, do, *,
                          f"{tuple(t1.shape)}")
     dev = t1.device
     win = (B, n_dev, n_cfg, T, W)
-    _check("t1", t1, torch.float32, win, dev)
-    _check("t2", t2, torch.float32, win, dev)
-    _check("valid", valid, torch.bool, win, dev)
-    _check("min_dur", min_dur, torch.float32, (B, n_cfg), dev)
-    _check("q1", q1, torch.float32, (B, n_dev), dev)
-    _check("dl", dl, torch.float32, (B, n_dev), dev)
-    _check("src", src, torch.int32, (B,), dev)
-    _check("do", do, torch.bool, (B,), dev)
+    for name, x, dtype, shape in (
+            ("t1", t1, torch.float32, win), ("t2", t2, torch.float32, win),
+            ("valid", valid, torch.bool, win),
+            ("min_dur", min_dur, torch.float32, (B, n_cfg)),
+            ("q1", q1, torch.float32, (B, n_dev)),
+            ("dl", dl, torch.float32, (B, n_dev)),
+            ("src", src, torch.int32, (B,)), ("do", do, torch.bool, (B,))):
+        _build.check_tensor("fused_place", name, x, dtype, shape, dev)
     for c in (cfg_pref, cfg_fallback):
         if not 0 <= c < n_cfg:
             raise ValueError(f"fused_place: config index {c} out of range")

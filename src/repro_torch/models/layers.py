@@ -1,0 +1,195 @@
+"""Core transformer layers, in PyTorch: the port of
+``repro/models/layers.py`` for the dense and VLM decoder stacks.
+
+Shapes and parameter layouts are the JAX package's: B=batch, S=sequence,
+D=d_model, H=query heads, K=kv heads, h=head_dim; ``wq`` is [D,H,h] and
+``wo`` is [H,h,D], so weights carry across unchanged.
+
+Self-attention on a CUDA tensor goes through the flash-attention kernel
+(``kernels/flash_attention/ops.py::attention_op``) at every sequence length
+and every per-layer window: the port runs its layers in a Python loop, so a
+layer's window is a plain int, and the CUDA kernel masks its own ragged
+edge. On the CPU it takes the masked-softmax path ``_sdpa``, as the JAX
+package does off the TPU. Both compute the same function.
+
+Not ported here (later slices): ``attention_decode``, ``cross_attention``
+and MLA. The JAX package's ``set_attention_q_sharding`` hint is a GSPMD
+sharding constraint with no counterpart on one card, so it is left out.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import attention_op
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms & activations
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, scale, eps=1e-6):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def act_fn(name: str):
+    return {"silu": F.silu,
+            "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "relu": F.relu}[name]
+
+
+def softcap(x, cap: float):
+    return torch.tanh(x / cap) * cap if cap > 0 else x
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., S, n_heads, head_dim]; positions: [..., S] int32. Rotates
+    the two halves of the head dim (not interleaved pairs)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)               # [hd/2]
+    angles = positions[..., None].float() * freqs         # [..., S, hd/2]
+    cos = torch.cos(angles)[..., None, :]                 # [..., S, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Masks
+# ---------------------------------------------------------------------------
+
+def causal_window_mask(q_pos, k_pos, window: int):
+    """[..., Sq, Sk] additive f32 mask; window -1 = global."""
+    diff = q_pos[..., :, None] - k_pos[..., None, :]
+    ok = diff >= 0
+    if window >= 0:
+        ok &= diff < max(window, 1)
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class AttnDims:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 1e4
+    attn_softcap: float = 0.0
+
+
+def normal_init(gen, shape, scale, dtype, device):
+    """N(0, scale²) drawn in f32 from ``gen`` on the CPU, then moved."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+    return x.to(device=device, dtype=dtype)
+
+
+def init_attention(gen, d_model, dims: AttnDims, qkv_bias=False,
+                   dtype=torch.bfloat16, device=None) -> dict:
+    H, K, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
+    s = d_model ** -0.5
+
+    def draw(shape, scale):
+        return normal_init(gen, shape, scale, dtype, device)
+
+    p = {
+        "wq": draw((d_model, H, hd), s),
+        "wk": draw((d_model, K, hd), s),
+        "wv": draw((d_model, K, hd), s),
+        "wo": draw((H, hd, d_model), (H * hd) ** -0.5),
+    }
+    if qkv_bias:
+        p["bq"] = torch.zeros((H, hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((K, hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((K, hd), dtype=dtype, device=device)
+    return p
+
+
+def _qkv(p, x, dims: AttnDims, positions):
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = apply_rope(q, positions, dims.rope_theta)
+    k = apply_rope(k, positions, dims.rope_theta)
+    return q, k, v
+
+
+def _sdpa(q, k, v, mask, dims: AttnDims):
+    """q: [B,Sq,H,h]; k,v: [B,Sk,K,h]; mask: [B?,Sq,Sk] additive."""
+    H, K = dims.n_heads, dims.n_kv_heads
+    G = H // K
+    B, Sq = q.shape[:2]
+    q = q.reshape(B, Sq, K, G, dims.head_dim)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float()
+    scores = scores * dims.head_dim ** -0.5
+    scores = softcap(scores, dims.attn_softcap)
+    scores = scores + mask[:, None, None, :, :]
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
+    return out.reshape(B, Sq, H, dims.head_dim)
+
+
+def attention(p, x, dims: AttnDims, positions, window: int = -1,
+              backend: str = "auto"):
+    """Full (prefill) causal self-attention with a sliding window
+    (``window`` -1 = global).
+
+    A CUDA tensor goes through ``attention_op`` (``backend`` "auto" or
+    "kernel": the CUDA kernel; "ref": its plain version); a CPU tensor
+    through ``_sdpa``."""
+    q, k, v = _qkv(p, x, dims, positions)
+    if x.is_cuda:
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        out = attention_op(
+            qh, kh, vh, causal=True, window=max(window, 0),
+            softcap=dims.attn_softcap, backend=backend,
+        ).transpose(1, 2)
+    else:
+        mask = causal_window_mask(positions, positions, window)
+        out = _sdpa(q, k, v, mask, dims)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, d_model, d_ff, dtype=torch.bfloat16, device=None) -> dict:
+    def draw(shape, scale):
+        return normal_init(gen, shape, scale, dtype, device)
+
+    return {
+        "wg": draw((d_model, d_ff), d_model ** -0.5),
+        "wu": draw((d_model, d_ff), d_model ** -0.5),
+        "wd": draw((d_ff, d_model), d_ff ** -0.5),
+    }
+
+
+def mlp(p, x, act="silu"):
+    g = act_fn(act)(torch.einsum("bsd,df->bsf", x, p["wg"]))
+    u = torch.einsum("bsd,df->bsf", x, p["wu"])
+    return torch.einsum("bsf,fd->bsd", g * u, p["wd"])

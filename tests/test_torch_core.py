@@ -269,7 +269,8 @@ def test_seq_sum_is_the_reference_order():
 
 def test_port_imports_without_jax_or_repro():
     """Every module of the port imports in a process where ``jax`` and
-    ``repro`` cannot be imported at all."""
+    ``repro`` cannot be imported at all: the fleet path, and the serving
+    path with its model substrate and attention kernel."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -289,11 +290,20 @@ def test_port_imports_without_jax_or_repro():
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "repro")]
         assert not bad, bad
-        print(len(names))
+        print("\\n".join(names))
     """)
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
         env={**os.environ, "PYTHONPATH": str(SRC)}, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    names = set(out.stdout.split())
+    assert len(names) >= 15
+    for name in ("fleet.engine", "kernels.placement.placement",
+                 "models.config", "models.layers", "models.transformer",
+                 "configs", "configs.waste_pipeline", "core.wps",
+                 "kernels.flash_attention.flash_attention",
+                 "kernels.flash_attention.ops",
+                 "kernels.flash_attention.ref", "serving.engine",
+                 "launch.serve", "carry"):
+        assert f"repro_torch.{name}" in names, name
