@@ -8,15 +8,19 @@ printing one JSON line per phase; the first failure raises and the run
 exits non-zero. It imports nothing of JAX or of the JAX package.
 
 1. card: the GPU's name and power limit, as ``nvidia-smi`` reports them;
-2. build: the CUDA kernels, from ``src/repro_torch/kernels/*/csrc``, one
-   ``nvcc`` each, all started together;
+2. build: the five CUDA kernels, from ``src/repro_torch/kernels/*/csrc``,
+   one ``nvcc`` each, all started together;
 3. kernel: every kernel against its plain PyTorch version on the card:
    ``fused_place`` on seeded random rows plus hand-built corner rows, at
    B=8192 and at a ragged B=37 — every output must be bit-identical;
    ``flash_attention`` on seeded N(0,1) inputs at the waste pipeline's
    shapes (S 173 and 233, bf16 and f32), a qwen2.5-3b and a gemma2-2b local
-   and global layer, a ragged small case and a non-causal one — within
-   2e-5 (f32) and 1.6e-2 (bf16, one ulp at |out| < 4);
+   and global layer, a zamba2-7b layer (hd 112), a ragged small case and a
+   non-causal one — within 2e-5 (f32) and 1.6e-2 (bf16, one ulp at
+   |out| < 4); ``ssm_scan``, ``ssd_scan`` and ``flash_decode`` at the layer
+   shapes of falcon-mamba-7b and zamba2-7b and at ragged small shapes —
+   scans in f32 within 1e-4 of the largest |y|, bf16 outputs within one
+   bf16 ulp of the largest |y| (the 1.6e-2 of attention below 4);
 4. fleet path: ``run_sweep`` of 4 cells x 2048 seeds x 95 frames in one
    batch of 8192 replicas with ``FleetParams()`` defaults; the placement
    kernel must launch 21 times a tick, and no LP task may be lost;
@@ -29,19 +33,35 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    built twice from the same weights, on the kernel and on the plain
    attention, must give equal serving results and logits within 2e-2 (bf16)
    and 1e-4 (f32) of the largest logit;
-7. timing: each kernel's time per launch at its shapes (CUDA events) beside
-   its bound, the plain version's time and, for attention, the time of
-   ``scaled_dot_product_attention`` (a yardstick the port never calls); and
-   where each path's time goes (``torch.profiler``).
+7. hybrid path: the full zamba2-7b config (81 Mamba-2 blocks, 13 calls of
+   the shared attention block, bf16, random weights from a seed): one
+   ``Model.forward`` of 1 x 4096 tokens, which must launch ``ssd_scan`` 81
+   times and ``flash_attention`` 13 times, then 8 ``decode_step``s at
+   batch 4 against 32768-long caches filled from a seed, each launching
+   ``flash_decode`` 13 times;
+8. ssm path: the full falcon-mamba-7b config (64 Mamba-1 blocks): one
+   forward of 1 x 4096 tokens with 64 ``ssm_scan`` launches, then 8 decode
+   steps at batch 128;
+9. kernel path vs plain path at model level, full width and cut depth
+   (zamba2 13 blocks, falcon-mamba 4, S 512; 4 zamba2 decode steps against
+   a 4096 cache): logits within 2e-2 of the largest logit (bf16);
+10. timing: each kernel's time per launch at its shapes (CUDA events) beside
+   its bound, the plain version's time and, where one PyTorch call computes
+   the same function, that call's time (a yardstick the port never calls);
+   and where each path's time goes (``torch.profiler``).
 
-Then one ``{"kernels": [...]}`` line, and as the last line
+Every phase line carries ``elapsed_s``, the seconds since the start. Then
+one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``. Without CUDA it exits non-zero and
 prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -67,13 +87,48 @@ ATTN_CASES = [
     ("qwen2.5-3b", 1, 16, 2, 4096, 128, torch.bfloat16, True, 0, 0.0),
     ("gemma2-2b-local", 1, 8, 4, 8192, 256, torch.bfloat16, True, 4096, 50.0),
     ("gemma2-2b-global", 1, 8, 4, 8192, 256, torch.bfloat16, True, 0, 50.0),
+    ("zamba2-7b", 1, 32, 32, 4096, 112, torch.bfloat16, True, 0, 0.0),
     ("ragged-small", 2, 4, 2, 37, 32, torch.float32, True, 8, 20.0),
     ("bidirectional", 1, 4, 2, 300, 128, torch.float32, False, 0, 0.0),
 ]
 MAIN_ATTN_CASE = "waste-stage3-bf16"   # the stage-3 forward's attention
+KERNELS = ["placement", "flash_attention", "ssm_scan", "ssd_scan",
+           "flash_decode"]
+SCAN_F32_TOL = 1e-4               # of the largest |y|
+DECODE_F32_TOL = 3e-5             # of a decode output row's largest |y|
+#: (name, B, S, d_inner, N, dtype): Mamba-1 selective scans
+SSM_CASES = [
+    ("falcon-mamba-7b", 1, 4096, 8192, 16, torch.bfloat16),
+    ("ragged-small", 2, 77, 200, 16, torch.float32),
+]
+#: (name, B, S, H, P, N, dtype): Mamba-2 SSD scans
+SSD_CASES = [
+    ("zamba2-7b", 1, 4096, 112, 64, 64, torch.bfloat16),
+    ("ragged-small", 2, 77, 3, 64, 64, torch.float32),
+]
+#: (name, B, H, K, S, hd, dtype, window, softcap): decode attention; pos
+#: is near the end of the cache for zamba2, anywhere (0 included) else.
+#: The f32 case at zamba2's shape resolves single keys (see decode_tol).
+DECODE_CASES = [
+    ("zamba2-7b", 4, 32, 32, 32768, 112, torch.bfloat16, 0, 0.0),
+    ("zamba2-7b-f32", 4, 32, 32, 32768, 112, torch.float32, 0, 0.0),
+    ("gqa-window-softcap", 3, 8, 2, 1000, 64, torch.float32, 100, 30.0),
+    ("gqa-bf16-ragged", 2, 16, 2, 4097, 128, torch.bfloat16, 0, 0.0),
+]
+SEQ = 4096                        # prefill tokens of the model paths
+DECODE_STEPS = 8
+HYBRID_DECODE = (4, 32768)        # batch, cache length
+SSM_DECODE_BATCH = 128
+MODEL_TOL = 2e-2                  # kernel vs plain logits, of max |logit|
+
+
+T_START = time.perf_counter()
 
 
 def emit(obj):
+    """One JSON line; a phase's line carries the seconds since the start."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -172,8 +227,25 @@ def library_attention(q, k, v, causal, window, cap):
                                                   is_causal=causal)
 
 
+def busy_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a >= end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return busy
+
+
 def profile_device(fn, label):
-    """Device busy share and the top device ops of one call of ``fn``."""
+    """Device busy share and the top device kernels of one call of ``fn``.
+
+    Only the device's own events count (kernels, copies, memsets): a CPU
+    op's self device time repeats the time of the kernels it launched, so
+    summing both would count that time twice. Busy time is the union of
+    the device events' intervals."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -183,20 +255,482 @@ def profile_device(fn, label):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0:
-            rows.append((us, e.key, e.count))
-    rows.sort(reverse=True)
-    device_us = sum(r[0] for r in rows)
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    rows = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    device_us = busy_us(spans)
     return {"phase": "profile", "of": label, "wall_ms": 1e3 * wall,
-            "device_busy_ms": device_us / 1e3 if rows else None,
-            "device_busy_share": device_us / 1e6 / wall if rows else None,
+            "device_events": len(spans),
+            "device_busy_ms": device_us / 1e3 if spans else None,
+            "device_busy_share": device_us / 1e6 / wall if spans else None,
             "top_device_ops": [
                 {"name": k[:80], "ms": us / 1e3, "calls": n}
                 for us, k, n in rows[:10]]}
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude ``x`` (1.6e-2 in [2, 4))."""
+    return 2.0 ** (math.floor(math.log2(max(x, 1e-30))) - 7)
+
+
+def scan_tol(ref, dtype) -> float:
+    """Tolerance of a scan kernel's output against its plain version:
+    SCAN_F32_TOL of the largest |ref| in f32, one bf16 ulp of it in bf16."""
+    top = ref.float().abs().max().item()
+    return SCAN_F32_TOL * top if dtype == torch.float32 else bf16_ulp(top)
+
+
+def decode_tol(ref, dtype):
+    """Tolerance of each decode-attention output row [B,H,1]: ATTN_TOL, cut
+    to DECODE_F32_TOL of the row's largest |ref| in f32 and to one bf16 ulp
+    of it in bf16. A row averages up to 32768 rows of v, so |out| is ~1e-2
+    there and the fixed 1.6e-2 alone would pass a kernel that drops keys.
+    In f32 the order of the kernel's sums (8 warps of 4096 keys each) moves
+    a row by a few 1e-6 of its max, and one key of 32768 by ~1e-4 or more,
+    so the rule sees a missed or extra key; check_new_kernels confirms
+    that on each run's data."""
+    top = ref.float().abs().amax(dim=-1, keepdim=True).clamp_min(1e-30)
+    if dtype == torch.float32:
+        scaled = DECODE_F32_TOL * top
+    else:
+        scaled = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return scaled.clamp_max(ATTN_TOL[dtype])
+
+
+def dt_bias(n: int, dev):
+    """The models' dt biases: log(exp(linspace(1e-3, 1e-1, n)) - 1)."""
+    return torch.log(torch.expm1(torch.linspace(1e-3, 1e-1, n, device=dev)))
+
+
+def ssm_inputs(i, case, dev):
+    """Seeded u, dt, A, B, C of a Mamba-1 scan, drawn on the card as
+    ``mamba1_forward`` shapes them: dt = softplus(N(0, 0.25) + dt_bias)."""
+    _, B, S, di, N, dt = case
+    g = torch.Generator(dev).manual_seed(2000 + i)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    import torch.nn.functional as F
+
+    u = randn(B, S, di)
+    dtv = F.softplus(0.5 * randn(B, S, di) + dt_bias(di, dev))
+    A = -torch.arange(1, N + 1, dtype=torch.float32,
+                      device=dev).expand(di, N).contiguous()
+    return (u.to(dt), dtv.to(dt), A, randn(B, S, N).to(dt),
+            randn(B, S, N).to(dt))
+
+
+def ssd_inputs(i, case, dev):
+    """Seeded x, dt (f32), A (f32), B, C of a Mamba-2 scan, drawn on the
+    card as ``mamba2_forward`` shapes them."""
+    _, B, S, H, P, N, dt = case
+    g = torch.Generator(dev).manual_seed(3000 + i)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    import torch.nn.functional as F
+
+    x = randn(B, S, H, P)
+    dtv = F.softplus(randn(B, S, H) + dt_bias(H, dev))
+    A = -torch.linspace(1.0, 16.0, H, device=dev)
+    return (x.to(dt), dtv.contiguous(), A, randn(B, S, N).to(dt),
+            randn(B, S, N).to(dt))
+
+
+def decode_inputs(i, case, dev):
+    """Seeded q [B,H,hd], caches [B,S,K,hd] and pos [B] int32."""
+    name, B, H, K, S, hd, dt, *_ = case
+    g = torch.Generator(dev).manual_seed(4000 + i)
+    q = torch.randn((B, H, hd), generator=g, device=dev).to(dt)
+    k = torch.randn((B, S, K, hd), generator=g, device=dev, dtype=dt)
+    v = torch.randn((B, S, K, hd), generator=g, device=dev, dtype=dt)
+    if name.startswith("zamba2-7b"):
+        pos = S - 8 + torch.randint(0, 8, (B,), generator=g, device=dev)
+    else:
+        pos = torch.randint(0, S, (B,), generator=g, device=dev)
+        pos[0] = 0
+    return q, k, v, pos.to(torch.int32)
+
+
+def ssm_bound(case):
+    """(bound ms, bound_by, ops, bytes) of one selective scan: u, dt, B, C,
+    A read and y written once; 7 f32 operations a state element a step
+    (dt*A, exp, *h, du*B, +, *C, +) and dt*u, at the f32 rate (the
+    recurrence has no matrix product for the tensor cores)."""
+    _, B, S, di, N, dt = case
+    e = 2 if dt == torch.bfloat16 else 4
+    nbytes = 3 * B * S * di * e + 2 * B * S * N * e + di * N * 4
+    ops = B * S * di * (7 * N + 1)
+    return _bound(ops, FP32_OPS_PER_S, nbytes)
+
+
+def ssd_bound(case):
+    """(bound ms, bound_by, ops, bytes) of one SSD scan: x, dt, A, B, C read
+    and y written once; the products of the chunked form at the kernel's
+    64-row chunks (the causal half of C B^T and of W x, all of C h^T and of
+    the state update) at the peak rate of the inputs' type."""
+    _, B, S, H, P, N, dt = case
+    e = 2 if dt == torch.bfloat16 else 4
+    nbytes = 2 * B * S * H * P * e + B * S * H * 4 + H * 4 + 2 * B * S * N * e
+    ops = 0
+    for t0 in range(0, S, 64):
+        q = min(64, S - t0)
+        ops += 2 * (q * (q + 1) // 2) * (N + P) + 4 * q * P * N
+    ops *= B * H
+    rate = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
+    return _bound(ops, rate, nbytes)
+
+
+def decode_bound(case, pos):
+    """(bound ms, bound_by, ops, bytes) of one decode attention: the visible
+    keys' rows of k and v read once (this run's pos and window), q read and
+    the output written once; q.k and p.v over the visible keys at the
+    inputs' peak rate."""
+    _, B, H, K, S, hd, dt, window, _ = case
+    e = 2 if dt == torch.bfloat16 else 4
+    visible = 0
+    for p in pos.tolist():
+        lo = max(0, p - window + 1) if window > 0 else 0
+        visible += min(p, S - 1) - lo + 1
+    nbytes = 2 * visible * K * hd * e + 2 * B * H * hd * e + B * 4
+    ops = 4 * hd * visible * (H // K) * K
+    rate = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
+    return _bound(ops, rate, nbytes)
+
+
+def _bound(ops, rate, nbytes):
+    ops_ms, bytes_ms = 1e3 * ops / rate, 1e3 * nbytes / HBM_BYTES_PER_S
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops, nbytes)
+
+
+def library_decode(q, k, v, pos):
+    """One ``scaled_dot_product_attention`` call computing the same decode
+    attention (no window, no softcap, one query head a kv head, so nothing
+    is expanded): the caches transposed to [B,K,S,hd] beforehand, outside
+    the timed call, and a boolean mask of the visible keys."""
+    import torch.nn.functional as F
+
+    B, H, hd = q.shape
+    S = k.shape[1]
+    if H != k.shape[2]:
+        return None
+    q4 = q[:, :, None, :]
+    kt = k.transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
+    idx = torch.arange(S, device=q.device)
+    mask = (idx[None, :] <= pos[:, None].long())[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q4, kt, vt,
+                                                  attn_mask=mask)
+
+
+def check_new_kernels(dev):
+    """Phase 3, the three kernels of the SSM and hybrid paths (and the hd 112
+    attention, in ``ATTN_CASES``) against their plain versions on the card.
+    Returns the max abs error of each kernel and the decode cases' pos."""
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan as ssm
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    errs = {"ssm_scan": 0.0, "ssd_scan": 0.0, "flash_decode": 0.0}
+    runs = [("ssm_scan", SSM_CASES, ssm_inputs, ssm.ssm_scan, ssm_scan_ref),
+            ("ssd_scan", SSD_CASES, ssd_inputs, ssd.ssd_scan, ssd_scan_ref)]
+    for kernel, cases, inputs, ker_fn, ref_fn in runs:
+        for i, c in enumerate(cases):
+            xs = inputs(i, c, dev)
+            ker = ker_fn(*xs)
+            torch.cuda.synchronize()
+            ref = ref_fn(*xs)
+            err = max_abs_err([ref], [ker])
+            tol = scan_tol(ref, c[-1])
+            errs[kernel] = max(errs[kernel], err)
+            emit({"phase": "kernel", "kernel": kernel, "case": c[0],
+                  "shape": list(xs[0].shape), "dtype": str(c[-1]),
+                  "max_abs_err": err,
+                  "max_abs_out": ref.float().abs().max().item(),
+                  "tolerance": tol,
+                  "finite": bool(torch.isfinite(ker).all())})
+            check(ker.dtype == c[-1] and ker.shape == xs[0].shape
+                  and bool(torch.isfinite(ker).all()),
+                  f"{kernel} gave a bad result in case {c[0]}")
+            check(err <= tol, f"{kernel} differs from its plain version in "
+                              f"case {c[0]}: {err} > {tol}")
+            del xs, ker, ref
+    decode_pos = {}
+    for i, c in enumerate(DECODE_CASES):
+        name, *_, dt, window, cap = c
+        q, k, v, pos = decode_inputs(i, c, dev)
+        ker = fd.flash_decode(q, k, v, pos, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        ref = decode_attention_ref(q, k, v, pos, window=window, softcap=cap)
+        err = max_abs_err([ref], [ker])
+        tol = decode_tol(ref, dt)
+        worst = ((ker.float() - ref.float()).abs() / tol).max().item()
+        errs["flash_decode"] = max(errs["flash_decode"], err)
+        decode_pos[name] = pos.cpu()
+        row = {"phase": "kernel", "kernel": "flash_decode", "case": name,
+               "q_shape": list(q.shape), "cache_shape": list(k.shape),
+               "dtype": str(dt), "window": window, "softcap": cap,
+               "pos": pos.tolist(), "max_abs_err": err,
+               "max_abs_out": ref.float().abs().max().item(),
+               "tolerance_rows": [tol.min().item(), tol.max().item()],
+               "err_over_tolerance": worst,
+               "finite": bool(torch.isfinite(ker).all())}
+        if dt == torch.float32 and window == 0 and bool((pos > 0).all()):
+            # the same rule must see the newest key dropped, in every row
+            short = decode_attention_ref(q, k, v, pos - 1, softcap=cap)
+            row["one_key_over_tolerance"] = (
+                (short - ref).abs().amax(-1, keepdim=True) / tol).min().item()
+            check(row["one_key_over_tolerance"] > 1.0,
+                  f"flash_decode's tolerance in case {name} cannot see one "
+                  f"key: {row['one_key_over_tolerance']}")
+            del short
+        emit(row)
+        check(ker.dtype == dt and ker.shape == q.shape
+              and bool(torch.isfinite(ker).all()),
+              f"flash_decode gave a bad result in case {name}")
+        check(worst <= 1.0, f"flash_decode differs from its plain version "
+                            f"in case {name}: {err}, {worst} x its "
+                            f"tolerance")
+        del q, k, v, ker, ref
+    torch.cuda.empty_cache()
+    return errs, decode_pos
+
+
+def counters() -> dict:
+    """Each kernel's wrapper module, whose ``launches`` counts its launches,
+    by kernel name."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.kernels.placement import placement
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssm_scan import ssm_scan as ssm
+
+    return {"fused_place": placement, "flash_attention": fa,
+            "flash_decode": fd, "ssd_scan": ssd, "ssm_scan": ssm}
+
+
+def reset_counts():
+    for mod in counters().values():
+        mod.launches = 0
+
+
+def counts() -> dict:
+    return {name: mod.launches for name, mod in counters().items()}
+
+
+def timed(fn):
+    """(result, host seconds) of ``fn`` between two synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def model_path(arch: str, dev, want_fwd: dict, want_step: dict,
+               decode_batch: int, cache_len: int, seed: int) -> dict:
+    """Phases 7 and 8: the full config of ``arch`` (bf16, random weights
+    from ``seed``, drawn on the card): one forward of 1 x SEQ tokens, then
+    DECODE_STEPS decode steps from a state of ``init_decode_state(
+    decode_batch, cache_len)`` whose caches are filled from a seed and whose
+    pos is ``cache_len - DECODE_STEPS``. Checks each kernel's launches
+    against ``want_fwd`` (a forward) and ``want_step`` (a decode step), and
+    the logits' shape and finiteness. Returns the counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    model, build_s = timed(lambda: Model(cfg, seed=seed, device=dev,
+                                         init_device=dev))
+    n_params = sum(p.numel() for p in model.parameters())
+    g = torch.Generator(dev).manual_seed(seed + 100)
+    tokens = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=g,
+                           device=dev)
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        model({"tokens": tokens[:, :cfg.ssm_chunk]})     # warm-up
+        reset_counts()
+        (logits, _), fwd_s = timed(lambda: model(batch))
+    fwd_counts = counts()
+    check(tuple(logits.shape) == (1, SEQ, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch}: bad forward logits {tuple(logits.shape)}")
+    for name, n in want_fwd.items():
+        check(fwd_counts[name] == n, f"{arch}: {name} launched "
+                                     f"{fwd_counts[name]} times a forward, "
+                                     f"not {n}")
+    del logits
+
+    def forward():
+        with torch.no_grad():
+            model(batch)
+
+    fwd_profile = profile_device(forward, f"{arch} forward")
+
+    state = model.init_decode_state(decode_batch, cache_len)
+    for key in ("k", "v"):
+        if key in state:
+            state[key].normal_(generator=g)
+    state["pos"].fill_(cache_len - DECODE_STEPS)
+    tok = torch.randint(0, cfg.vocab_size, (decode_batch,), generator=g,
+                        device=dev)
+    reset_counts()
+    step_s = []
+    with torch.no_grad():
+        for step in range(DECODE_STEPS - 1):
+            (lg, state), s_ = timed(lambda: model.decode_step(state, tok))
+            step_s.append(s_)
+            check(tuple(lg.shape) == (decode_batch, cfg.vocab_size)
+                  and bool(torch.isfinite(lg).all()),
+                  f"{arch}: bad decode logits at step {step}")
+            tok = lg.argmax(-1)
+        step_profile = profile_device(
+            lambda: model.decode_step(state, tok), f"{arch} decode step")
+    step_counts = counts()
+    check(int(state["pos"][0]) == cache_len,
+          f"{arch}: pos {int(state['pos'][0])} after {DECODE_STEPS} steps")
+    for name, n in want_step.items():
+        check(step_counts[name] == n * DECODE_STEPS,
+              f"{arch}: {name} launched {step_counts[name]} times in "
+              f"{DECODE_STEPS} decode steps, not {n} a step")
+    out = {"phase": f"{cfg.arch_type}_path", "arch": arch,
+           "params": n_params, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "build_s": build_s, "forward_tokens": [1, SEQ],
+           "forward_ms": 1e3 * fwd_s, "forward_launches": fwd_counts,
+           "decode_batch": decode_batch, "decode_cache_len": cache_len,
+           "decode_step_ms": [1e3 * x for x in step_s],
+           "decode_launches": step_counts,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "reduced": [f"forward B 1 x S {SEQ} (source shape "
+                       "PREFILL_32K: B 32 x S 32768), for the time limit",
+                       f"decode batch {decode_batch} (source DECODE_32K: "
+                       "batch 128)" if decode_batch != 128 else
+                       "decode at DECODE_32K's batch 128"]}
+    emit(out)
+    emit({**fwd_profile, "of": f"{arch} forward, 1 x {SEQ}"})
+    emit({**step_profile, "of": f"{arch} decode step, batch {decode_batch}"})
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"forward": fwd_counts, "decode": step_counts}
+
+
+def model_plain_paths(dev):
+    """Phase 9: each model built twice from one seed, on the kernels and on
+    their plain versions, at full width and cut depth; logits within
+    MODEL_TOL of the largest logit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+
+    rows = []
+    for arch, n_layers in (("zamba2-7b", 13), ("falcon-mamba-7b", 4)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        g = torch.Generator(dev).manual_seed(11)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 512), generator=g,
+                               device=dev)
+        step_tokens = torch.randint(0, cfg.vocab_size, (4, 2), generator=g,
+                                    device=dev)
+        logits, secs = {}, {}
+        for backend in ("auto", "ref"):
+            model = Model(cfg, seed=7, device=dev, backend=backend,
+                          init_device=dev)
+            with torch.no_grad():
+                (fwd, _), secs[backend] = timed(
+                    lambda: model({"tokens": tokens}))
+                out = [fwd.float()]
+                if cfg.arch_type == "hybrid":
+                    state = model.init_decode_state(2, 4096)
+                    sg = torch.Generator(dev).manual_seed(12)
+                    state["k"].normal_(generator=sg)
+                    state["v"].normal_(generator=sg)
+                    state["pos"].fill_(4096 - 4)
+                    for tk in step_tokens:
+                        lg, state = model.decode_step(state, tk)
+                        out.append(lg.float())
+                    del state
+            logits[backend] = out
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        rel = [(a - b).abs().max().item() / b.abs().max().item()
+               for a, b in zip(logits["auto"], logits["ref"])]
+        row = {"phase": "model_plain_path", "arch": arch,
+               "layers": n_layers, "tokens": [2, 512],
+               "decode_steps": len(rel) - 1,
+               "logits_err_over_max": rel, "tolerance": MODEL_TOL,
+               "kernel_path_s": secs["auto"], "plain_path_s": secs["ref"]}
+        emit(row)
+        check(max(rel) <= MODEL_TOL,
+              f"{arch}: kernel and plain logits differ: {rel}")
+        rows.append(row)
+    return rows
+
+
+def time_new_kernels(dev, errs, decode_pos):
+    """Phase 10 for the SSM and hybrid paths' kernels, at their main
+    shapes: ms a launch, the plain version's ms, the bound and, for
+    flash_decode, SDPA's ms."""
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+    from repro_torch.kernels.ssm_scan import ssm_scan as ssm
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    rows = {}
+    for kernel, case, inputs, ker_fn, ref_fn, bound in (
+            ("ssm_scan", SSM_CASES[0], ssm_inputs, ssm.ssm_scan,
+             ssm_scan_ref, ssm_bound),
+            ("ssd_scan", SSD_CASES[0], ssd_inputs, ssd.ssd_scan,
+             ssd_scan_ref, ssd_bound)):
+        xs = inputs(0, case, dev)
+        bound_ms, bound_by, ops, nbytes = bound(case)
+        ms = time_ms(lambda: ker_fn(*xs))
+        rows[kernel] = {
+            "case": case[0], "ms": ms,
+            "plain_ms": time_ms(lambda: ref_fn(*xs), budget_ms=1.0),
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+            "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
+            "library_ms": None,
+            "library_none_because": "no single PyTorch call computes a "
+                                    "selective or SSD scan",
+            "max_abs_err": errs[kernel]}
+        emit({"phase": "timing", "kernel": kernel, **rows[kernel]})
+        del xs
+    case = DECODE_CASES[0]
+    q, k, v, pos = decode_inputs(0, case, dev)
+    check(torch.equal(pos.cpu(), decode_pos[case[0]]),
+          "decode inputs are not reproducible")
+    bound_ms, bound_by, ops, nbytes = decode_bound(case, pos)
+    ms = time_ms(lambda: fd.flash_decode(q, k, v, pos))
+    lib = library_decode(q, k, v, pos)
+    rows["flash_decode"] = {
+        "case": case[0], "ms": ms,
+        "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, pos)),
+        "library_ms": time_ms(lib) if lib is not None else None,
+        "library_call": "scaled_dot_product_attention, boolean mask, "
+                        "caches transposed to [B,K,S,hd] outside the "
+                        "timed call, GQA not expanded (G = 1)",
+        "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+        "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
+        "max_abs_err": errs["flash_decode"]}
+    emit({"phase": "timing", "kernel": "flash_decode",
+          **rows["flash_decode"]})
+    del q, k, v, lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> None:
@@ -234,7 +768,7 @@ def main() -> None:
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    logs = _build.build(["placement", "flash_attention"])
+    logs = _build.build(KERNELS)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(logs),
           "nvcc": {k: v.splitlines() for k, v in logs.items()}})
@@ -281,6 +815,7 @@ def main() -> None:
                                    f"version in case {name}: {err}")
         del q, k, v, ker, ref
     torch.cuda.empty_cache()
+    new_err, decode_pos = check_new_kernels(dev)
 
     # -- 4. the fleet path --------------------------------------------------
     sweep = SweepConfig(scenarios=("uniform", "weighted2"),
@@ -390,7 +925,7 @@ def main() -> None:
     weights = Model(wcfg, seed=0, device=dev).state_dict()
     results = {}
     for backend in ("kernel", "ref"):
-        model = Model(wcfg, device=dev, attn_backend=backend)
+        model = Model(wcfg, device=dev, backend=backend)
         model.load_state_dict(weights)
         eng = ServingEngine(wcfg, scheduler="ras", seed=0, device=dev,
                             model=model)
@@ -415,7 +950,7 @@ def main() -> None:
                        ("f32", dataclasses.replace(wcfg, dtype="float32"))):
         logits = {}
         for backend in ("kernel", "ref"):
-            model = Model(cfg, device=dev, attn_backend=backend)
+            model = Model(cfg, device=dev, backend=backend)
             model.load_state_dict(
                 {k: v.to(getattr(torch, cfg.dtype))
                  for k, v in weights.items()})
@@ -434,7 +969,32 @@ def main() -> None:
           f"bf16 logits differ: {rel_err['bf16']}")
     check(max(rel_err["f32"]) <= 1e-4, f"f32 logits differ: {rel_err['f32']}")
 
-    # -- 7. timing -----------------------------------------------------------
+    # -- 7. the hybrid path: full zamba2-7b ----------------------------------
+    launches_by_path = {"serving": {"forwards": {
+        "flash_attention": serve_launches}}}
+    zcfg = get_config("zamba2-7b")
+    n_attn = zcfg.n_layers // zcfg.shared_attn_every
+    launches_by_path["zamba2-7b"] = model_path(
+        "zamba2-7b", dev,
+        want_fwd={"ssd_scan": zcfg.n_layers, "flash_attention": n_attn,
+                  "ssm_scan": 0, "flash_decode": 0},
+        want_step={"flash_decode": n_attn, "ssd_scan": 0,
+                   "flash_attention": 0},
+        decode_batch=HYBRID_DECODE[0], cache_len=HYBRID_DECODE[1], seed=0)
+
+    # -- 8. the ssm path: full falcon-mamba-7b -------------------------------
+    fcfg = get_config("falcon-mamba-7b")
+    launches_by_path["falcon-mamba-7b"] = model_path(
+        "falcon-mamba-7b", dev,
+        want_fwd={"ssm_scan": fcfg.n_layers, "ssd_scan": 0,
+                  "flash_attention": 0},
+        want_step={"ssm_scan": 0, "flash_decode": 0},
+        decode_batch=SSM_DECODE_BATCH, cache_len=HYBRID_DECODE[1], seed=1)
+
+    # -- 9. kernel path vs plain path at model level --------------------------
+    model_plain_paths(dev)
+
+    # -- 10. timing -----------------------------------------------------------
     case = cases.with_adversarial_rows(cases.random_case(B_MAIN, seed=0))
     pristine = on_card(case)
     work = [x.clone() for x in pristine]
@@ -521,6 +1081,28 @@ def main() -> None:
           "host_ms_per_forward_unprofiled": 1e3 * (time.perf_counter() - t0)
           / 20})
 
+    new_rows = time_new_kernels(dev, new_err, decode_pos)
+
+    def path_launches(name):
+        """The kernel's launches on each main path that ran it (forward and
+        decode counted apart), and their sum."""
+        per = {f"{path} {part}": n[name]
+               for path, parts in launches_by_path.items()
+               for part, n in parts.items() if n.get(name)}
+        return sum(per.values()), per
+
+    def new_entry(name, source, replaces):
+        total, per = path_launches(name)
+        row = new_rows[name]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": total,
+                "launches_by_path": per, "matched": True,
+                "max_abs_err": row["max_abs_err"], "case": row["case"],
+                "ms": row["ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["library_ms"]}
+
+    attn_total, attn_per = path_launches("flash_attention")
     emit({"kernels": [{
         "name": "fused_place",
         "route": "cuda",
@@ -541,8 +1123,10 @@ def main() -> None:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",
-        "launches": serve_launches,
+        "launches": attn_total,
+        "launches_by_path": attn_per,
         "forward_passes": serve_forwards,
+        "matched": True,
         "max_abs_err": max(attn_err.values()),
         "case": MAIN_ATTN_CASE,
         "ms": main_attn["ms"],
@@ -553,7 +1137,16 @@ def main() -> None:
         "cases": [{k: r[k] for k in ("case", "ms", "plain_ms", "library_ms",
                                      "bound_ms", "bound_by")}
                   for r in attn_rows],
-    }]})
+    }, new_entry("ssd_scan",
+                 "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/ssd_scan.py:74"),
+        new_entry("ssm_scan",
+                  "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+                  "src/repro/kernels/ssm_scan/ssm_scan.py:61"),
+        new_entry("flash_decode",
+                  "src/repro_torch/kernels/flash_decode/csrc/"
+                  "flash_decode.cu",
+                  "src/repro/kernels/flash_decode/flash_decode.py:80")]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

@@ -6,11 +6,14 @@ arrays (or any object with the same field names, this package's
 them, so that both engines can start from the same mid-run state.
 ``fleet_to_numpy`` and ``stats_to_numpy`` go the other way.
 ``model_params_from_numpy`` takes a ``repro`` ``Model.init`` parameter tree
-of numpy arrays and gives this package's ``Model`` state. This module
+of numpy arrays and gives this package's ``Model`` state;
+``decode_state_from_numpy`` does the same for a decode state. This module
 imports neither package: it reads fields and keys by name.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -51,37 +54,85 @@ def fleet_to_numpy(fs: FleetState) -> FleetState:
                       *map(_host, fs[1:]))
 
 
-def model_params_from_numpy(cfg, params, *, device=None) -> dict:
-    """The state dict of ``models.transformer.Model(cfg)`` holding the
-    weights of ``params``: a ``repro`` ``Model.init`` tree (nested dicts of
-    numpy arrays, the layer leaves stacked on a leading axis under
-    ``stack``), on ``device`` (``None`` -> CUDA), in ``cfg.dtype``.
+def _leaf_converter(cfg, device):
+    """numpy leaf -> tensor on ``device``, keeping the leaf's own dtype: an
+    f32 leaf stays f32 (the SSM's ``D``, ``dt_bias``, ``A_log`` and
+    ``D_head`` in a bf16 model), an int32 leaf stays int32, and any other
+    float leaf goes to ``cfg.dtype``.
 
     ``jax.device_get`` gives bf16 leaves as ``ml_dtypes.bfloat16`` arrays,
-    which ``torch.from_numpy`` refuses: every leaf goes through float32,
-    which holds each bf16 value exactly, and then to ``cfg.dtype``."""
-    check_supported(cfg)
-    device = resolve_device(device)
+    which ``torch.from_numpy`` refuses: they go through float32, which holds
+    each bf16 value exactly."""
     dtype = getattr(torch, cfg.dtype)
 
     def conv(x):
-        a = np.ascontiguousarray(np.asarray(x).astype(np.float32))
-        return torch.from_numpy(a).to(device=device, dtype=dtype)
+        a = np.asarray(x)
+        if a.dtype == np.int32:
+            return torch.from_numpy(np.array(a)).to(device)
+        to = torch.float32 if a.dtype == np.float32 else dtype
+        a = np.ascontiguousarray(a.astype(np.float32))
+        return torch.from_numpy(a).to(device=device, dtype=to)
 
+    return conv
+
+
+def _leaves(tree, prefix: str):
+    """(dotted path, leaf) of every leaf of a nested dict."""
+    for key, val in tree.items():
+        path = f"{prefix}.{key}"
+        if isinstance(val, dict):
+            yield from _leaves(val, path)
+        else:
+            yield path, val
+
+
+def model_params_from_numpy(cfg, params, *, device=None) -> dict:
+    """The state dict of ``models.transformer.Model(cfg)`` holding the
+    weights of ``params``: a ``repro`` ``Model.init`` tree (nested dicts of
+    numpy arrays), on ``device`` (``None`` -> CUDA).
+
+    Stacked layer leaves are unstacked into per-layer names: ``stack``
+    leaves ``[L, …]`` become ``layers.<i>.…``; ``ssm_stack`` leaves
+    ``[L, …]`` become ``ssm_stack.<i>.…``; the hybrid's ``groups`` leaves
+    ``[n_groups, g, …]`` become ``groups.<a>.<b>.…`` and ``tail`` leaves
+    ``[rem, …]`` ``tail.<r>.…``; ``shared_attn`` is one block, unstacked.
+    Each leaf keeps its own dtype (``_leaf_converter``)."""
+    check_supported(cfg)
+    conv = _leaf_converter(cfg, resolve_device(device))
     state = {"embed": conv(params["embed"]), "ln_f": conv(params["ln_f"])}
     if not cfg.tie_embeddings:
         state["unembed"] = conv(params["unembed"])
-    stack = params["stack"]
-    for group in ("attn", "mlp"):
-        for name, leaf in stack[group].items():
-            if np.shape(leaf)[0] != cfg.n_layers:
-                raise ValueError(f"stack/{group}/{name} has "
-                                 f"{np.shape(leaf)[0]} layers, not "
-                                 f"{cfg.n_layers}")
-    for i in range(cfg.n_layers):
-        state[f"layers.{i}.ln1"] = conv(stack["ln1"][i])
-        state[f"layers.{i}.ln2"] = conv(stack["ln2"][i])
-        for group in ("attn", "mlp"):
-            for name, leaf in stack[group].items():
-                state[f"layers.{i}.{group}.{name}"] = conv(leaf[i])
+
+    def unstack(tree, layers: tuple, name: str):
+        """Leaves stacked on leading axes of sizes ``layers``, one entry
+        per index."""
+        for path, leaf in _leaves(tree, name):
+            if np.shape(leaf)[:len(layers)] != layers:
+                raise ValueError(f"{path} has {np.shape(leaf)[:len(layers)]}"
+                                 f" layers, not {layers}")
+            for idx in itertools.product(*map(range, layers)):
+                key = ".".join([name, *map(str, idx)]) + path[len(name):]
+                state[key] = conv(leaf[idx])
+
+    if cfg.arch_type == "ssm":
+        unstack(params["ssm_stack"], (cfg.n_layers,), "ssm_stack")
+    elif cfg.arch_type == "hybrid":
+        g = cfg.shared_attn_every
+        n_groups, rem = divmod(cfg.n_layers, g)
+        unstack(params["groups"], (n_groups, g), "groups")
+        if rem:
+            unstack(params["tail"], (rem,), "tail")
+        unstack(params["shared_attn"], (), "shared_attn")
+    else:
+        unstack(params["stack"], (cfg.n_layers,), "layers")
     return state
+
+
+def decode_state_from_numpy(cfg, state, *, device=None) -> dict:
+    """A copy of a ``repro`` ``Model.init_decode_state`` / ``decode_step``
+    state (a dict of numpy arrays) on ``device`` (``None`` -> CUDA), as
+    ``Model.decode_step`` takes it: ``pos`` int32, the recurrent states
+    ``h`` / ``h_tail`` f32, the caches and conv buffers in ``cfg.dtype``."""
+    check_supported(cfg)
+    conv = _leaf_converter(cfg, resolve_device(device))
+    return {k: conv(v) for k, v in state.items()}

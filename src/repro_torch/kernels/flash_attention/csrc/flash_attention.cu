@@ -12,7 +12,7 @@
 //
 // q is [B,H,S,hd], k and v are [B,K,S,hd], all contiguous; query head h
 // reads kv head h / (H / K). Element type float or bf16 (converted with
-// __bfloat162float / __float2bfloat16); hd in {32, 64, 128, 256}.
+// __bfloat162float / __float2bfloat16); hd in {32, 64, 112, 128, 256}.
 //
 // Design: one block of 256 threads per (b, h, tile of 64 query rows). The
 // TPU kernel's sequential k grid axis, whose running max m, normaliser l and
@@ -28,7 +28,8 @@
 // a tile leaves its m, l and acc as they were. The final division uses
 // max(l, 1e-30), as the reference does. At hd=256 the tiles take 213,760
 // bytes of dynamic shared memory (over 48 KB, so the launch raises the
-// limit with cudaFuncAttributeMaxDynamicSharedMemorySize). The ragged S edge
+// limit with cudaFuncAttributeMaxDynamicSharedMemorySize); at zamba2's hd 112
+// (7 output columns a thread) they take 103,168. The ragged S edge
 // is masked in the kernel: key rows past S load as zero and are masked,
 // query rows past S are not stored.
 //
@@ -258,6 +259,9 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, B, H, K, S, causal, window, scale,
                            softcap, stream);
+    case 112:
+      return launch<T, 112>(q, k, v, o, B, H, K, S, causal, window, scale,
+                            softcap, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, K, S, causal, window, scale,
                             softcap, stream);

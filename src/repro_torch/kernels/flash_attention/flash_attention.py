@@ -22,7 +22,7 @@ from repro_torch.kernels import _build
 #: kernel launches since the last reset (one per attention layer a forward)
 launches = 0
 
-HEAD_DIMS = (32, 64, 128, 256)   # instantiated in the .cu
+HEAD_DIMS = (32, 64, 112, 128, 256)   # instantiated in the .cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p

@@ -1,0 +1,82 @@
+"""Wrapper of the CUDA SSD-scan kernel (``csrc/ssd_scan.cu``).
+
+Replaces the TPU kernel ``repro/kernels/ssd_scan/ssd_scan.py::ssd_scan``.
+One launch scans every (batch row, head) of a Mamba-2 block over the whole
+sequence in the chunked block form, at any S: the kernel masks its own
+ragged edge.
+
+The kernel is built with ``nvcc`` on first use (``kernels/_build.py``) and
+called through ``ctypes`` on PyTorch's current stream. It takes CUDA
+tensors only; anything else raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: kernel launches since the last reset (one per Mamba-2 block a forward)
+launches = 0
+
+SHAPES = ((64, 64),)   # (head dim P, state dim N) instantiated: zamba2's
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P] * 6 + [_I] * 6 + [_P]   # as in ssd_scan_launch
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.library("ssd_scan")
+    if lib.ssd_scan_launch.argtypes is None:
+        lib.ssd_scan_launch.argtypes = _ARGTYPES
+        lib.ssd_scan_launch.restype = ctypes.c_int
+        lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
+        lib.ssd_scan_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ssd_scan(x, dt, A, B, C):
+    """x: [B,S,H,P]; dt: [B,S,H] f32; A: [H] f32; B, C: [B,S,N]; x, B and
+    C of one dtype (f32 or bf16), all contiguous on one CUDA device
+    -> y [B,S,H,P] in x's dtype."""
+    global launches
+    if not isinstance(x, torch.Tensor) or not x.is_cuda:
+        raise ValueError("ssd_scan runs on CUDA tensors only; use "
+                         "ssd_scan_ref for tensors on the host")
+    if x.dim() != 4 or B.dim() != 3:
+        raise ValueError("ssd_scan: x must be 4-d and B 3-d")
+    Bsz, S, H, P = x.shape
+    N = B.shape[2]
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"ssd_scan: unsupported dtype {x.dtype}")
+    if (P, N) not in SHAPES:
+        raise ValueError(f"ssd_scan: (head dim, state dim) {(P, N)} not in "
+                         f"{SHAPES}")
+    if Bsz < 1 or S < 1 or H < 1:
+        raise ValueError(f"ssd_scan: empty input {tuple(x.shape)}")
+    dev = x.device
+    for name, t, dtype, shape in (
+            ("x", x, x.dtype, (Bsz, S, H, P)),
+            ("dt", dt, torch.float32, (Bsz, S, H)),
+            ("A", A, torch.float32, (H,)), ("B", B, x.dtype, (Bsz, S, N)),
+            ("C", C, x.dtype, (Bsz, S, N))):
+        _build.check_tensor("ssd_scan", name, t, dtype, shape, dev)
+    y = torch.empty_like(x)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ssd_scan_launch(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), Bsz, S, H, P, N, _DTYPES[x.dtype],
+            stream,
+        )
+    if rc != 0:
+        msg = ("unsupported (head dim, state dim)" if rc < 0
+               else lib.ssd_scan_error_string(rc).decode())
+        raise RuntimeError(f"ssd_scan launch failed ({rc}): {msg}")
+    launches += 1
+    return y

@@ -12,8 +12,12 @@ layer's window is a plain int, and the CUDA kernel masks its own ragged
 edge. On the CPU it takes the masked-softmax path ``_sdpa``, as the JAX
 package does off the TPU. Both compute the same function.
 
-Not ported here (later slices): ``attention_decode``, ``cross_attention``
-and MLA. The JAX package's ``set_attention_q_sharding`` hint is a GSPMD
+``attention_decode`` (one token against a preallocated cache) goes through
+the flash-decode kernel (``kernels/flash_decode/ops.py::decode_attention_op``)
+for a CUDA tensor, at every cache length and window, and through ``_sdpa``
+with the reference's mask on the CPU.
+
+Not ported here (later slices): ``cross_attention`` and MLA. The JAX package's ``set_attention_q_sharding`` hint is a GSPMD
 sharding constraint with no counterpart on one card, so it is left out.
 """
 
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import attention_op
+from repro_torch.kernels.flash_decode.ops import decode_attention_op
 
 NEG_INF = -1e30
 
@@ -101,8 +106,10 @@ class AttnDims:
 
 
 def normal_init(gen, shape, scale, dtype, device):
-    """N(0, scale²) drawn in f32 from ``gen`` on the CPU, then moved."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+    """N(0, scale²) drawn in f32 from ``gen`` on the generator's device,
+    then moved to ``device`` in ``dtype``."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device) * scale
     return x.to(device=device, dtype=dtype)
 
 
@@ -172,6 +179,44 @@ def attention(p, x, dims: AttnDims, positions, window: int = -1,
         mask = causal_window_mask(positions, positions, window)
         out = _sdpa(q, k, v, mask, dims)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def attention_decode(p, x, dims: AttnDims, cache_k, cache_v, pos,
+                     window: int = -1, backend: str = "auto"):
+    """One-token decode against a preallocated cache.
+
+    x: [B,1,D]; cache_k, cache_v: [B,S,K,h]; pos: [B] int32, the write
+    index (``0 <= pos < S``). The new k and v (RoPE at ``pos``) are written
+    into the caches **in place** at ``pos``, and the token attends to
+    ``cache[: pos+1]`` (and to the last ``window`` keys when ``window`` > 0).
+    The JAX package updates the caches functionally; a copy of a full cache
+    each step would dominate the step here. Returns (out [B,1,D], cache_k,
+    cache_v), the caches being the tensors passed in.
+
+    A CUDA tensor goes through ``decode_attention_op`` (``backend`` "auto"
+    or "kernel": the CUDA kernel, reading the caches in their own layout;
+    "ref": its plain version); a CPU tensor through ``_sdpa`` with the
+    reference's mask."""
+    B, S = cache_k.shape[:2]
+    q, k, v = _qkv(p, x, dims, pos[:, None])
+    rows = torch.arange(B, device=x.device)
+    cache_k[rows, pos.long()] = k[:, 0]
+    cache_v[rows, pos.long()] = v[:, 0]
+    if x.is_cuda:
+        out = decode_attention_op(
+            q[:, 0].contiguous(), cache_k, cache_v, pos,
+            softcap=dims.attn_softcap, window=max(window, 0),
+            backend=backend,
+        )[:, None]                                        # [B,1,H,h]
+    else:
+        k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+        diff = pos[:, None] - k_pos[None, :]
+        ok = diff >= 0
+        if window >= 0:
+            ok &= diff < max(window, 1)
+        mask = torch.where(ok, 0.0, NEG_INF).float()[:, None, :]
+        out = _sdpa(q, cache_k, cache_v, mask, dims)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,294 @@
+"""State-space sequence layers in PyTorch: the port of
+``repro/models/ssm.py``, Mamba-1 (selective scan) and Mamba-2 (SSD).
+
+Shapes and parameter layouts are the JAX package's, so weights carry
+across unchanged; ``D``, ``dt_bias``, ``A_log`` and ``D_head`` are f32 in a
+model of any dtype, as there.
+
+The full-sequence forward of a CUDA tensor goes through the hand-written
+scan kernels (``kernels/ssm_scan/ops.py::ssm_scan_op`` and
+``kernels/ssd_scan/ops.py::ssd_scan_op``), with the casts the JAX package
+applies before its TPU kernels: Mamba-1 passes dt, B and C in the
+activation dtype (in bf16, dt is rounded to bf16), Mamba-2 passes B and C
+in the activation dtype and keeps dt in f32. A CPU tensor takes the
+chunked forms ``_selective_scan_chunked`` and ``_ssd_chunked``, as the JAX
+package does off the TPU. Either way the sequence must be a multiple of
+``SSMDims.chunk``, as the JAX package's chunked forms assert.
+
+Single-token decode is the exact recurrence (O(1) state per token).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+from repro_torch.kernels.ssm_scan.ops import ssm_scan_op
+from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+from repro_torch.models.layers import act_fn, normal_init, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMDims:
+    d_model: int
+    d_state: int
+    d_conv: int = 4
+    expand: int = 2
+    version: int = 1          # 1 = mamba1, 2 = mamba2 (SSD)
+    head_dim: int = 64        # mamba2 P
+    chunk: int = 256
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(1, math.ceil(self.d_model / 16))
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def _inverse_softplus_linspace(n: int, device):
+    """``log(exp(linspace(1e-3, 1e-1, n)) - 1)`` in f32: the dt biases."""
+    x = torch.linspace(1e-3, 1e-1, n, dtype=torch.float32, device=device)
+    return torch.log(torch.exp(x) - 1.0)
+
+
+def init_ssm(gen, dims: SSMDims, dtype=torch.bfloat16, device=None) -> dict:
+    """One block's parameters, drawn from ``gen``: the projections in
+    ``dtype``, ``D``, ``dt_bias``, ``A_log`` and ``D_head`` in f32."""
+    di, N = dims.d_inner, dims.d_state
+
+    def draw(shape, scale):
+        return normal_init(gen, shape, scale, dtype, device)
+
+    f32 = dict(dtype=torch.float32, device=device)
+    p = {
+        "in_proj": draw((dims.d_model, 2 * di), dims.d_model ** -0.5),
+        "conv_w": draw((dims.d_conv, di), 0.2),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=device),
+        "out_proj": draw((di, dims.d_model), di ** -0.5),
+        "D": torch.ones((di,), **f32),
+    }
+    if dims.version == 1:
+        p.update(
+            x_dbc=draw((di, dims.dt_rank + 2 * N), di ** -0.5),
+            dt_proj=draw((dims.dt_rank, di), dims.dt_rank ** -0.5),
+            dt_bias=_inverse_softplus_linspace(di, device),
+            A_log=torch.log(torch.arange(1, N + 1, **f32)).expand(di, N)
+            .contiguous(),
+        )
+    else:
+        H = dims.n_heads
+        p.update(
+            x_bcdt=draw((di, 2 * N + H), di ** -0.5),
+            dt_bias=_inverse_softplus_linspace(H, device),
+            A_log=torch.log(torch.linspace(1.0, 16.0, H, **f32)),
+            D_head=torch.ones((H,), **f32),
+            norm_scale=torch.zeros((di,), dtype=dtype, device=device),
+        )
+    return p
+
+
+def softplus(x):
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` computes it."""
+    return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv as a sum of K shifted products. x: [B,S,C];
+    w: [K,C]."""
+    K, S = w.shape[0], x.shape[1]
+    pad = torch.nn.functional.pad(x, (0, 0, K - 1, 0))
+    out = sum(pad[:, i: i + S, :] * w[i] for i in range(K))
+    return out + b
+
+
+def _check_chunked(S: int, chunk: int) -> None:
+    if S % chunk:
+        raise ValueError(f"sequence of {S} is not a multiple of the SSM "
+                         f"chunk {chunk} (pad upstream)")
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1: chunked selective scan
+# ---------------------------------------------------------------------------
+
+def _selective_scan_chunked(u, dt, A, B, C, chunk: int):
+    """u: [B,S,di]; dt: [B,S,di]; A: [di,N]; B, C: [B,S,N] -> y [B,S,di]
+    in u's dtype.
+
+    The JAX package carries the state ``h [B,di,N]`` (f32) across chunks
+    and runs an associative scan inside each; here the plain version of the
+    scan kernel runs the recurrence step by step throughout, the same
+    function summed in another order."""
+    _check_chunked(u.shape[1], chunk)
+    return ssm_scan_ref(u, dt, A, B, C)
+
+
+def _dt_softplus(dt_raw, dt_bias):
+    return softplus(dt_raw.float() + dt_bias)
+
+
+def mamba1_forward(p, x, dims: SSMDims, backend: str = "auto"):
+    """Full-sequence Mamba-1 block. x: [B,S,D] -> [B,S,D]. ``backend`` is
+    passed to ``ssm_scan_op`` for CUDA tensors."""
+    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xin, z = xz.chunk(2, dim=-1)
+    xin = act_fn("silu")(_causal_conv(xin, p["conv_w"], p["conv_b"]))
+    dbc = torch.einsum("bsd,de->bse", xin, p["x_dbc"])
+    dt_r, Bm, Cm = torch.split(
+        dbc, [dims.dt_rank, dims.d_state, dims.d_state], dim=-1)
+    dt = _dt_softplus(torch.einsum("bsr,rd->bsd", dt_r, p["dt_proj"]),
+                      p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    if xin.is_cuda:
+        _check_chunked(xin.shape[1], dims.chunk)
+        y = ssm_scan_op(
+            xin.contiguous(), dt.to(xin.dtype), A,
+            Bm.to(xin.dtype).contiguous(), Cm.to(xin.dtype).contiguous(),
+            backend=backend,
+        )
+    else:
+        y = _selective_scan_chunked(xin, dt, A, Bm.float(), Cm.float(),
+                                    dims.chunk)
+    y = y + xin * p["D"].to(x.dtype)
+    y = y * act_fn("silu")(z)
+    return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+
+
+def _conv_step(p, conv_buf, xin):
+    """The causal conv at the newest token: (silu(conv) [B,di], the new
+    buffer of the last d_conv - 1 inputs)."""
+    window = torch.cat([conv_buf, xin], dim=1)               # [B,d_conv,di]
+    conv = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
+    return act_fn("silu")(conv), window[:, 1:]
+
+
+def mamba1_decode(p, x, dims: SSMDims, h, conv_buf):
+    """One-token recurrence. x: [B,1,D]; h: [B,di,N] f32; conv_buf:
+    [B,d_conv-1,di] (the trailing inputs). Returns (out [B,1,D], h,
+    conv_buf)."""
+    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xin, z = xz.chunk(2, dim=-1)                              # [B,1,di]
+    xc, conv_buf = _conv_step(p, conv_buf, xin)
+    xc = xc[:, None, :]
+    dbc = torch.einsum("bsd,de->bse", xc, p["x_dbc"])
+    dt_r, Bm, Cm = torch.split(
+        dbc, [dims.dt_rank, dims.d_state, dims.d_state], dim=-1)
+    dt = _dt_softplus(torch.einsum("bsr,rd->bsd", dt_r, p["dt_proj"]),
+                      p["dt_bias"])[:, 0]                     # [B,di]
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt[..., None] * A[None])                    # [B,di,N]
+    b = (dt * xc[:, 0])[..., None] * Bm[:, 0, None, :].float()
+    h = a * h + b
+    y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())
+    y = y.to(x.dtype) + xc[:, 0] * p["D"].to(x.dtype)
+    y = y * act_fn("silu")(z[:, 0])
+    out = torch.einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
+    return out, h, conv_buf
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2: SSD (chunked block decomposition)
+# ---------------------------------------------------------------------------
+
+def _ssd_chunked(xh, dt, A, B, C, chunk: int):
+    """SSD scan. xh: [B,S,H,P]; dt: [B,S,H]; A: [H] (negative); B, C:
+    [B,S,N] (one state group) -> y [B,S,H,P] in xh's dtype."""
+    Bsz, S, H, P = xh.shape
+    _check_chunked(S, chunk)
+    nchunks = S // chunk
+    l = (dt * A[None, None]).float().reshape(Bsz, nchunks, chunk, H)
+    Lcum = torch.cumsum(l, dim=2)                             # [B,nc,C,H]
+    xc_all = xh.float().reshape(Bsz, nchunks, chunk, H, P)
+    dt_c = dt.float().reshape(Bsz, nchunks, chunk, H)
+    B_c = B.float().reshape(Bsz, nchunks, chunk, -1)
+    C_c = C.float().reshape(Bsz, nchunks, chunk, -1)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=xh.device))
+    h = torch.zeros((Bsz, H, P, B.shape[-1]), dtype=torch.float32,
+                    device=xh.device)
+    ys = []
+    for c in range(nchunks):
+        Lc, xc, dtc = Lcum[:, c], xc_all[:, c], dt_c[:, c]
+        Bc, Cc = B_c[:, c], C_c[:, c]
+        # intra-chunk: masked decay matrix M[t,s] = exp(L_t - L_s), s <= t
+        diff = Lc[:, :, None, :] - Lc[:, None, :, :]          # [B,t,s,H]
+        M = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
+        G = torch.einsum("btn,bsn->bts", Cc, Bc)
+        W = G[:, :, :, None] * M * dtc[:, None, :, :]         # [B,t,s,H]
+        y_intra = torch.einsum("btsh,bshp->bthp", W, xc)
+        # inter-chunk: contribution of the carried state
+        y_inter = (torch.einsum("btn,bhpn->bthp", Cc, h)
+                   * torch.exp(Lc)[..., None])
+        # new carry
+        decay_to_end = torch.exp(Lc[:, -1:, :] - Lc)          # [B,s,H]
+        S_c = torch.einsum("bsh,bsn,bshp->bhpn", decay_to_end * dtc, Bc, xc)
+        h = torch.exp(Lc[:, -1])[:, :, None, None] * h + S_c
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
+    return y.to(xh.dtype)
+
+
+def mamba2_forward(p, x, dims: SSMDims, backend: str = "auto"):
+    """Full-sequence Mamba-2 block. x: [B,S,D] -> [B,S,D]. ``backend`` is
+    passed to ``ssd_scan_op`` for CUDA tensors."""
+    B_, S, _ = x.shape
+    H, P, N = dims.n_heads, dims.head_dim, dims.d_state
+    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xin, z = xz.chunk(2, dim=-1)
+    xin = act_fn("silu")(_causal_conv(xin, p["conv_w"], p["conv_b"]))
+    bcdt = torch.einsum("bsd,de->bse", xin, p["x_bcdt"])
+    Bm, Cm, dt_h = torch.split(bcdt, [N, N, H], dim=-1)
+    dt = _dt_softplus(dt_h, p["dt_bias"])                     # [B,S,H]
+    A = -torch.exp(p["A_log"])                                # [H]
+    xh = xin.reshape(B_, S, H, P)
+    if xh.is_cuda:
+        _check_chunked(S, dims.chunk)
+        y = ssd_scan_op(
+            xh.contiguous(), dt.contiguous(), A,
+            Bm.to(xh.dtype).contiguous(), Cm.to(xh.dtype).contiguous(),
+            backend=backend,
+        )
+    else:
+        y = _ssd_chunked(xh, dt, A, Bm, Cm, dims.chunk)
+    y = y + xh * p["D_head"][None, None, :, None].to(x.dtype)
+    y = y.reshape(B_, S, H * P)
+    y = y * act_fn("silu")(z)
+    y = rms_norm(y, p["norm_scale"])
+    return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+
+
+def mamba2_decode(p, x, dims: SSMDims, h, conv_buf):
+    """One-token SSD recurrence. x: [B,1,D]; h: [B,H,P,N] f32; conv_buf:
+    [B,d_conv-1,di]. Returns (out [B,1,D], h, conv_buf)."""
+    B_ = x.shape[0]
+    H, P, N = dims.n_heads, dims.head_dim, dims.d_state
+    xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    xin, z = xz.chunk(2, dim=-1)
+    xc, conv_buf = _conv_step(p, conv_buf, xin)               # [B,di]
+    bcdt = torch.einsum("bd,de->be", xc, p["x_bcdt"])
+    Bm, Cm, dt_h = torch.split(bcdt, [N, N, H], dim=-1)
+    dt = _dt_softplus(dt_h, p["dt_bias"])                     # [B,H]
+    A = -torch.exp(p["A_log"])
+    a = torch.exp(dt * A[None])                               # [B,H]
+    xh = xc.reshape(B_, H, P)
+    upd = torch.einsum("bh,bn,bhp->bhpn", dt, Bm.float(), xh.float())
+    h = a[:, :, None, None] * h + upd
+    y = torch.einsum("bhpn,bn->bhp", h, Cm.float()).to(x.dtype)
+    y = y + xh * p["D_head"][None, :, None].to(x.dtype)
+    y = y.reshape(B_, H * P) * act_fn("silu")(z[:, 0])
+    y = rms_norm(y, p["norm_scale"])
+    out = torch.einsum("be,ed->bd", y, p["out_proj"])[:, None, :]
+    return out, h, conv_buf

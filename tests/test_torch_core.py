@@ -269,8 +269,9 @@ def test_seq_sum_is_the_reference_order():
 
 def test_port_imports_without_jax_or_repro():
     """Every module of the port imports in a process where ``jax`` and
-    ``repro`` cannot be imported at all: the fleet path, and the serving
-    path with its model substrate and attention kernel."""
+    ``repro`` cannot be imported at all: the fleet path, the serving path
+    with its model substrate and attention kernel, and the SSM and hybrid
+    families with their scan and decode kernels."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -305,5 +306,10 @@ def test_port_imports_without_jax_or_repro():
                  "kernels.flash_attention.flash_attention",
                  "kernels.flash_attention.ops",
                  "kernels.flash_attention.ref", "serving.engine",
-                 "launch.serve", "carry"):
+                 "launch.serve", "carry", "models.ssm",
+                 "kernels.ssm_scan.ssm_scan", "kernels.ssm_scan.ops",
+                 "kernels.ssm_scan.ref", "kernels.ssd_scan.ssd_scan",
+                 "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",
+                 "kernels.flash_decode.flash_decode",
+                 "kernels.flash_decode.ops", "kernels.flash_decode.ref"):
         assert f"repro_torch.{name}" in names, name

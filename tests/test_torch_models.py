@@ -1,9 +1,11 @@
 """The port's model substrate against the JAX package on the CPU.
 
 Layers (``rms_norm``, ``apply_rope``, ``causal_window_mask``, the CPU
-``attention`` path and ``mlp``) and whole ``Model.forward`` passes are fed
-the same seeded numpy inputs and, for the models, the same weights: the JAX
-``Model.init`` tree carried across by ``carry.model_params_from_numpy``.
+``attention`` path and ``mlp``), whole ``Model.forward`` passes and
+``Model.decode_step``s are fed the same seeded numpy inputs and, for the
+models, the same weights: the JAX ``Model.init`` tree carried across by
+``carry.model_params_from_numpy``; decode starts both packages from the
+same mid-run state (``carry.decode_state_from_numpy``).
 
 Tolerances, stated with their reasons:
 - layers in f32: 2e-6 absolute. The same f32 formulas; matmul and
@@ -11,6 +13,9 @@ Tolerances, stated with their reasons:
   bits.
 - f32 model logits: 1e-4 absolute (logits of magnitude ~5). Those last-bit
   differences grow through the layers; measured at under 2e-5.
+- decode: logits 1e-4 absolute, as the forward; every state leaf 1e-5
+  absolute (caches, conv buffers and recurrent states of magnitude ~1,
+  measured under 2e-7 after three steps).
 - the full waste-pipeline in its own bf16: 0.25 absolute on logits of
   magnitude ~5 (measured: 0.10). Both frameworks round every matmul output and every
   activation to bf16 (8 bits of mantissa), at different places inside the
@@ -38,6 +43,7 @@ from repro.models.transformer import Model as Model_j
 import repro_torch.configs as configs_t
 import repro_torch.core.wps as wps_t
 import repro_torch.models.config as config_t
+from repro_torch.carry import decode_state_from_numpy
 from repro_torch.carry import model_params_from_numpy
 from repro_torch.models import layers as L_t
 from repro_torch.models.transformer import Model
@@ -47,7 +53,8 @@ LOGIT_ATOL = 1e-4
 BF16_LOGIT_ATOL = 0.25
 
 PORTED = ("qwen2.5-3b", "granite-8b", "gemma2-2b", "llava-next-34b",
-          "waste-pipeline")
+          "waste-pipeline", "zamba2-7b", "falcon-mamba-7b")
+DECODE = ("qwen2.5-3b", "zamba2-7b", "falcon-mamba-7b")
 
 
 def _rng(seed):
@@ -184,13 +191,19 @@ def _configs(arch, dtype="float32"):
         configs_t.get_config(arch))
 
 
-def _forward_both(arch, dtype="float32", S=48, seed=0):
+def _models(arch, dtype="float32", seed=0):
+    """Both packages' models of ``arch`` holding the JAX ``init`` weights."""
     cj, ct = _configs(arch, dtype)
     mj = Model_j(cj)
     pj = mj.init(jax.random.PRNGKey(seed))
     mt = Model(ct, device="cpu")
     mt.load_state_dict(model_params_from_numpy(ct, jax.device_get(pj),
                                                device="cpu"))
+    return mj, pj, mt, ct
+
+
+def _forward_both(arch, dtype="float32", S=48, seed=0):
+    mj, pj, mt, ct = _models(arch, dtype, seed)
     rng = _rng(seed + 1)
     batch = {"tokens": rng.integers(0, ct.vocab_size, (2, S)).astype(
         np.int32)}
@@ -219,6 +232,19 @@ def test_waste_pipeline_bf16_forward_matches():
     np.testing.assert_allclose(got, ref, rtol=0, atol=BF16_LOGIT_ATOL)
 
 
+def _port_names(keys, shape):
+    """The port's names (and shapes) of one JAX leaf: each stacked axis of
+    ``stack``, ``ssm_stack``, ``groups`` and ``tail`` becomes a list
+    index."""
+    top, rest = keys[0], keys[1:]
+    n_axes = {"stack": 1, "ssm_stack": 1, "tail": 1, "groups": 2}.get(top, 0)
+    name = "layers" if top == "stack" else top
+    idx = [[]]
+    for n in shape[:n_axes]:
+        idx = [i + [str(j)] for i in idx for j in range(n)]
+    return {".".join([name, *i, *rest]): tuple(shape[n_axes:]) for i in idx}
+
+
 def test_state_names_mirror_the_jax_leaves():
     for arch in PORTED:
         cj, ct = _configs(arch)
@@ -226,16 +252,33 @@ def test_state_names_mirror_the_jax_leaves():
         sd = Model(ct, device="cpu").state_dict()
         want = {}
         for path, leaf in jax.tree_util.tree_flatten_with_path(pj)[0]:
-            keys = [k.key for k in path]
-            if keys[0] == "stack":
-                for i in range(ct.n_layers):
-                    want[".".join(["layers", str(i), *keys[1:]])] = \
-                        leaf.shape[1:]
-            else:
-                want[".".join(keys)] = leaf.shape
-        assert {k: tuple(v.shape) for k, v in sd.items()} == \
-            {k: tuple(v) for k, v in want.items()}, arch
+            want.update(_port_names([k.key for k in path], leaf.shape))
+        assert {k: tuple(v.shape) for k, v in sd.items()} == want, arch
         assert all(v.dtype == getattr(torch, ct.dtype) for v in sd.values())
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "falcon-mamba-7b"])
+def test_f32_ssm_leaves_keep_f32_in_a_bf16_model(arch):
+    """In a bf16 model the SSM's ``D``, ``dt_bias``, ``A_log`` and
+    ``D_head`` are f32, in the JAX tree, in the port's own ``init`` and
+    through the carry; every other leaf is bf16."""
+    cj, ct = (dataclasses.replace(c, dtype="bfloat16")
+              for c in _configs(arch))
+    pj = jax.device_get(Model_j(cj).init(jax.random.PRNGKey(0)))
+    carried = model_params_from_numpy(ct, pj, device="cpu")
+    own = Model(ct, device="cpu").state_dict()
+    assert set(carried) == set(own)
+    f32 = {k for k in own if k.rsplit(".", 1)[-1] in
+           ("D", "dt_bias", "A_log", "D_head")}
+    assert f32
+    for k, v in carried.items():
+        want = torch.float32 if k in f32 else torch.bfloat16
+        assert v.dtype == want and own[k].dtype == want, k
+    flat = {".".join(str(p.key) for p in path): leaf for path, leaf in
+            jax.tree_util.tree_flatten_with_path(pj)[0]}
+    assert {str(v.dtype) for k, v in flat.items()
+            if k.rsplit(".", 1)[-1] in ("D", "dt_bias", "A_log",
+                                        "D_head")} == {"float32"}
 
 
 def test_carry_rejects_a_wrong_layer_count():
@@ -255,8 +298,7 @@ def test_init_is_seeded():
     assert not torch.equal(a["embed"], c["embed"])
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-7b",
-                                  "deepseek-v2-236b", "kimi-k2-1t-a32b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "kimi-k2-1t-a32b",
                                   "seamless-m4t-medium"])
 def test_families_not_ported_raise(arch):
     cfg = configs_t.reduced(configs_t.get_config(arch))
@@ -270,3 +312,86 @@ def test_model_defaults_to_cuda():
     cfg = configs_t.reduced(configs_t.get_config("qwen2.5-3b"))
     with pytest.raises(RuntimeError, match="CUDA"):
         Model(cfg)
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+def _mid_run_state(mj, B, S, seed):
+    """A JAX decode state with every leaf seeded: caches, conv buffers and
+    recurrent states non-zero, ``pos`` > 0 and different per row."""
+    rng = _rng(seed)
+    state = jax.device_get(mj.init_decode_state(B, S))
+    out = {}
+    for k, v in state.items():
+        if k == "pos":
+            out[k] = np.array([S // 2, S // 3 + 1][:B], np.int32)
+        else:
+            out[k] = _normal(rng, *v.shape, scale=0.5 if k.startswith("h")
+                             else 1.0).astype(v.dtype)
+    return out
+
+
+@pytest.mark.parametrize("arch", DECODE)
+def test_decode_step_matches_from_a_mid_run_state(arch):
+    """Three steps from the same carried mid-run state: the logits and every
+    state leaf after each, and the state's keys, shapes and dtypes."""
+    mj, pj, mt, ct = _models(arch)
+    sj = _mid_run_state(mj, 2, 24, seed=5)
+    st = decode_state_from_numpy(ct, sj, device="cpu")
+    sj = {k: jnp.asarray(v) for k, v in sj.items()}
+    step_j = jax.jit(mj.decode_step)
+    rng = _rng(6)
+    for _ in range(3):
+        tokens = rng.integers(0, ct.vocab_size, 2).astype(np.int32)
+        lj, sj = step_j(pj, sj, jnp.asarray(tokens))
+        lt, st = mt.decode_step(st, torch.from_numpy(tokens))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=0,
+                                   atol=LOGIT_ATOL)
+        assert set(st) == set(sj)
+        for k, v in sj.items():
+            assert tuple(st[k].shape) == v.shape, k
+            assert str(st[k].dtype).split(".")[1] == str(v.dtype), k
+            np.testing.assert_allclose(st[k].numpy(), np.asarray(v),
+                                       rtol=0, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("arch", DECODE)
+def test_init_decode_state_matches(arch):
+    mj, _, mt, _ = _models(arch)
+    want = jax.eval_shape(lambda: mj.init_decode_state(3, 40))
+    got = mt.init_decode_state(3, 40)
+    assert {k: (tuple(v.shape), str(v.dtype).split(".")[1])
+            for k, v in got.items()} == \
+        {k: (v.shape, str(v.dtype)) for k, v in want.items()}
+    assert all(not v.any() for v in got.values())
+
+
+@pytest.mark.parametrize("arch", DECODE)
+def test_decode_matches_forward_prefix(arch):
+    """Decoding a sequence token by token from an empty state gives the
+    forward pass's logits at every position (S = 16, one SSM chunk)."""
+    _, _, mt, ct = _models(arch)
+    S = 16
+    tokens = torch.from_numpy(
+        _rng(7).integers(0, ct.vocab_size, (2, S)).astype(np.int32))
+    full, _ = mt({"tokens": tokens})
+    state = mt.init_decode_state(2, S)
+    for t in range(S):
+        logits, state = mt.decode_step(state, tokens[:, t])
+        np.testing.assert_allclose(logits.numpy(), full[:, t].numpy(),
+                                   rtol=0, atol=LOGIT_ATOL)
+    assert state["pos"].tolist() == [S, S]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "falcon-mamba-7b"])
+def test_unaligned_forward_raises_in_both_packages(arch):
+    """S = 20 is not a multiple of the reduced configs' SSM chunk of 16:
+    the JAX package's chunked scan asserts, and the port raises."""
+    mj, pj, mt, ct = _models(arch)
+    tokens = np.zeros((1, 20), np.int32)
+    with pytest.raises(AssertionError):
+        mj.forward(pj, {"tokens": jnp.asarray(tokens)})
+    with pytest.raises(ValueError, match="chunk"):
+        mt({"tokens": torch.from_numpy(tokens)})
