@@ -8,7 +8,8 @@ printing one JSON line per phase; the first failure raises and the run
 exits non-zero. It imports nothing of JAX or of the JAX package.
 
 1. card: the GPU's name and power limit, as ``nvidia-smi`` reports them;
-2. build: the five CUDA kernels, from ``src/repro_torch/kernels/*/csrc``,
+2. build: the seven CUDA libraries, from ``src/repro_torch/kernels/*/csrc``
+   and the analysis fixture's ``src/repro_torch/analysis/fixtures/csrc``,
    one ``nvcc`` each, all started together;
 3. kernel: every kernel against its plain PyTorch version on the card:
    ``fused_place`` on seeded random rows plus hand-built corner rows, at
@@ -21,12 +22,19 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    shapes of falcon-mamba-7b and zamba2-7b and at ragged small shapes —
    scans in f32 within 1e-4 of the largest |y|, bf16 outputs within one
    bf16 ulp of the largest |y| (the 1.6e-2 of attention below 4);
+   ``window_query`` and ``window_query_batched`` bit for bit at the
+   reference query benchmark's 1024 devices, a ragged 300, 262,144
+   devices, B 8192 x Dev 4 (with ties on the ``<=``), the fleet's strided
+   HP view at B 8192 and a ragged B 3 x Dev 6; then the window-query path,
+   ``window_query_op`` on the 1024 devices, must launch the kernel once
+   and equal the plain version on the host;
 4. fleet path: ``run_sweep`` of 4 cells x 2048 seeds x 95 frames in one
-   batch of 8192 replicas with ``FleetParams()`` defaults; the placement
-   kernel must launch 21 times a tick, and no LP task may be lost;
-5. plain fleet path: the same batch through ``placement_backend="ref"``
-   must give bit-identical counters and final state, and the same cell
-   summaries;
+   batch of 8192 replicas with ``FleetParams()`` defaults; a tick must
+   launch the placement kernel 21 times and the window-query kernel 4 times
+   (the HP query of each device), and no LP task may be lost;
+5. plain fleet path: the same batch through ``placement_backend="ref"``,
+   which launches neither kernel, must give bit-identical counters and
+   final state, and the same cell summaries;
 6. serving path: ``serve`` of 40 frame periods of the full waste-pipeline
    config through the RAS scheduler and the WPS baseline; the attention
    kernel must launch once per layer of every forward pass; then one engine
@@ -48,7 +56,17 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
 10. timing: each kernel's time per launch at its shapes (CUDA events) beside
    its bound, the plain version's time and, where one PyTorch call computes
    the same function, that call's time (a yardstick the port never calls);
-   and where each path's time goes (``torch.profiler``).
+   the window-query kernels' and the racy fixture's device time a launch
+   (the profiler's device events); and where each path's time goes
+   (``torch.profiler``);
+11. single controller: ``hp_place`` on each device and ``lp_place`` of 4
+   tasks (lp2, lp4) from the same loaded scheduler on the card and on the
+   host give the same outputs and state bit for bit; both timed;
+12. launch-checker fixture: ``racy_sum`` on the card, whose two blocks
+   write the same outputs: each output must be one of the two writers'
+   values and the whole must differ from a correct reduction; the checker
+   must flag its declared launch as a write race and find the production
+   registry clean.
 
 Every phase line carries ``elapsed_s``, the seconds since the start. Then
 one ``{"kernels": [...]}`` line, and as the last line
@@ -72,7 +90,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 B_MAIN = 8192
 N_FRAMES = 95
-LAUNCHES_PER_TICK = 21            # 1 re-queue + 4 devices x (1 + 4)
+FUSED_PER_TICK = 21               # 1 re-queue + 4 devices x (1 + 4)
+HP_QUERIES_PER_TICK = 4           # one window query a device
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12            # H100 SXM, non-tensor f32
 BF16_OPS_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
@@ -93,7 +112,11 @@ ATTN_CASES = [
 ]
 MAIN_ATTN_CASE = "waste-stage3-bf16"   # the stage-3 forward's attention
 KERNELS = ["placement", "flash_attention", "ssm_scan", "ssd_scan",
-           "flash_decode"]
+           "flash_decode", "window_query", "racy_sum"]
+BENCH_QUERY = (30.0, 90.0, 17.2)  # q1, deadline, dur of the reference's
+                                  # benchmarks/bench_query.py
+WQ_SCALARS = (10.1, 80.3, 17.2)   # q1, deadline, dur that f32 rounds
+RACY_N = 1 << 20                  # outputs of the racy fixture
 SCAN_F32_TOL = 1e-4               # of the largest |y|
 DECODE_F32_TOL = 3e-5             # of a decode output row's largest |y|
 #: (name, B, S, d_inner, N, dtype): Mamba-1 selective scans
@@ -170,6 +193,29 @@ def time_ms(fn, budget_ms: float = 100.0) -> float:
     fn()
     one = cuda_ms(fn, 1)
     return cuda_ms(fn, max(3, min(200, int(budget_ms / max(one, 1e-3)))))
+
+
+def device_ms(fn, kernel: str, iters: int = 50) -> float:
+    """Mean device milliseconds a launch of the kernel whose name contains
+    ``kernel``, over ``iters`` calls of ``fn`` (the profiler's device
+    events): the kernel's own time, where a loop of calls is bound by the
+    host's cost a call. The profiler may miss the first few launches after
+    it starts; the mean is over the events it recorded, at least half."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name]
+    check(iters // 2 <= len(spans) <= iters,
+          f"{len(spans)} device events of {kernel} in {iters} calls")
+    return sum(spans) / len(spans) / 1e3
 
 
 def attn_inputs(i, case, dev):
@@ -505,25 +551,33 @@ def check_new_kernels(dev):
 
 
 def counters() -> dict:
-    """Each kernel's wrapper module, whose ``launches`` counts its launches,
-    by kernel name."""
+    """(wrapper module, counter name) of each kernel, by kernel name: the
+    attribute counts its launches."""
+    from repro_torch.analysis.fixtures import racy_kernel
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_decode import flash_decode as fd
     from repro_torch.kernels.placement import placement
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd
     from repro_torch.kernels.ssm_scan import ssm_scan as ssm
+    from repro_torch.kernels.window_query import window_query as wq
 
-    return {"fused_place": placement, "flash_attention": fa,
-            "flash_decode": fd, "ssd_scan": ssd, "ssm_scan": ssm}
+    return {"fused_place": (placement, "launches"),
+            "flash_attention": (fa, "launches"),
+            "flash_decode": (fd, "launches"), "ssd_scan": (ssd, "launches"),
+            "ssm_scan": (ssm, "launches"),
+            "window_query": (wq, "launches"),
+            "window_query_batched": (wq, "launches_batched"),
+            "racy_sum": (racy_kernel, "launches")}
 
 
 def reset_counts():
-    for mod in counters().values():
-        mod.launches = 0
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
 
 
 def counts() -> dict:
-    return {name: mod.launches for name, mod in counters().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in counters().items()}
 
 
 def timed(fn):
@@ -733,6 +787,288 @@ def time_new_kernels(dev, errs, decode_pos):
     return rows
 
 
+def loaded_ras(n_dev=4, n_tasks=24, seed=0):
+    """A RASScheduler of the port loaded as the reference's
+    ``benchmarks/bench_query.py`` loads one: 12 LP requests of 2 tasks."""
+    import numpy as np
+
+    from repro_torch.core.scheduler import RASScheduler
+    from repro_torch.core.tasks import LPRequest, Priority, Task
+
+    s = RASScheduler(n_dev, 20e6, seed=seed)
+    rng = np.random.default_rng(seed)
+    for i in range(n_tasks // 2):
+        t = float(rng.uniform(0, 60))
+        req = LPRequest(
+            [Task(Priority.LOW, i % n_dev, t, t + 80.0, 0) for _ in range(2)],
+            i % n_dev, t)
+        s.schedule_lp(req, t)
+    return s
+
+
+def bench_query_lists(reps: int = 256):
+    """The LP2 lists of ``loaded_ras()``'s 4 devices repeated ``reps``
+    times, as the reference's query benchmark builds its 1024 devices:
+    t1, t2 [4·reps, T, W] f32 (``inf`` in unused slots) and valid bool,
+    numpy arrays on the host."""
+    import numpy as np
+
+    from repro_torch.core.tasks import LP2_CONFIG
+
+    arrs = [d.list_for(LP2_CONFIG).to_arrays() for d in loaded_ras().devices]
+    return [np.repeat(np.stack([a[k] for a in arrs]), reps, axis=0)
+            for k in ("t1", "t2", "valid")]
+
+
+def random_windows(lead, T, W, seed, dev):
+    """Seeded windows: t1 in [0, 100), t2 = t1 + [1, 50), 70% valid."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (*lead, T, W)
+    t1 = torch.rand(shape, generator=g) * 100
+    t2 = t1 + 1 + torch.rand(shape, generator=g) * 49
+    valid = torch.rand(shape, generator=g) < 0.7
+    return t1.to(dev), t2.to(dev), valid.to(dev)
+
+
+def wq_cases(dev):
+    """(case, entry, inputs) of every window-query case, on the card."""
+    bench = [torch.from_numpy(x).to(dev) for x in bench_query_lists()]
+    out = [("bench_query-1024dev", "window_query", (*bench, *BENCH_QUERY))]
+    for name, n, seed in (("ragged-300dev", 300, 1),
+                          ("large-262144dev", 262_144, 2)):
+        out.append((name, "window_query",
+                    (*random_windows((n,), 2, 16, seed, dev), *WQ_SCALARS)))
+    g = torch.Generator().manual_seed(4)
+
+    def rand(*shape, lo=0.0, span=1.0):
+        return (lo + span * torch.rand(shape, generator=g)).to(dev)
+
+    # per-row parameters, and a fifth of the windows ending exactly at
+    # start + dur: the <= decides them
+    t1, t2, valid = random_windows((B_MAIN, 4), 2, 16, 3, dev)
+    q1 = rand(B_MAIN, 4, span=60.0)
+    dl = q1 + rand(B_MAIN, 4, lo=10.0, span=70.0)
+    dur = rand(B_MAIN, 4, lo=1.0, span=29.0)
+    tie = rand(*t1.shape) < 0.2
+    t2 = torch.where(tie, torch.maximum(t1, q1[..., None, None])
+                     + dur[..., None, None], t2)
+    out.append(("batched-8192x4", "window_query_batched",
+                (t1, t2, valid | tie, q1, dl, dur)))
+    # the fleet's HP query of device 1: [B,1,T,W] views of [B,4,3,2,16]
+    # windows and a strided column of min_dur, read in place
+    w1, w2, wv = random_windows((B_MAIN, 4, 3), 2, 16, 5, dev)
+    now = rand(B_MAIN, span=100.0)
+    min_dur = rand(B_MAIN, 3, lo=0.5, span=3.0)
+    hp = slice(1, 2)
+    out.append(("fleet-hp-view-8192", "window_query_batched",
+                (w1[:, hp, 0], w2[:, hp, 0], wv[:, hp, 0], now[:, None],
+                 (now + 3.0)[:, None], min_dur[:, :1])))
+    out.append(("ragged-3x6", "window_query_batched",
+                (*random_windows((3, 6), 2, 16, 6, dev),
+                 *(torch.full((3, 6), v, device=dev) for v in WQ_SCALARS))))
+    return out
+
+
+def wq_bound(xs, batched: bool):
+    """(bound ms, bound_by, ops, bytes) of one window query: each window's
+    t1, t2 and valid read once (9 bytes), the batched form's 3 parameters
+    a row, start and found written once (8 bytes a row); about 6
+    operations a window (max, add, min, compare, and, min) at the f32
+    rate."""
+    rows, tw = xs[0].shape[:-2].numel(), xs[0].shape[-2:].numel()
+    nbytes = rows * (9 * tw + (12 if batched else 0) + 8)
+    return _bound(6 * rows * tw, FP32_OPS_PER_S, nbytes)
+
+
+def window_query_phase(dev):
+    """Phase 3 for the window-query kernels: each against its plain version,
+    bit for bit, at every case; then the window-query path through
+    ``window_query_op``. Returns each case's row by kernel name, and the
+    path's launches."""
+    from repro_torch.kernels.window_query import window_query as wq
+    from repro_torch.kernels.window_query.ops import window_query_op
+    from repro_torch.kernels.window_query.ref import (
+        window_query_batched_ref, window_query_ref,
+    )
+
+    fns = {"window_query": (wq.window_query, window_query_ref),
+           "window_query_batched": (wq.window_query_batched,
+                                    window_query_batched_ref)}
+    rows = {name: [] for name in fns}
+    for case, entry, xs in wq_cases(dev):
+        ker_fn, ref_fn = fns[entry]
+        ker = ker_fn(*xs)
+        torch.cuda.synchronize()
+        ref = ref_fn(*xs)
+        same = [bit_equal(k, r) for k, r in zip(ker, ref)]
+        row = {"case": case, "shape": list(xs[0].shape),
+               "strided": not xs[0].is_contiguous(),
+               "outputs_bit_identical": same,
+               "max_abs_err": max_abs_err(ref, ker),
+               "found_rows": int(ref[0].sum()), "rows": ref[0].numel()}
+        emit({"phase": "kernel", "kernel": entry, **row})
+        check(all(same), f"{entry} differs from its plain version in case "
+                         f"{case}: {same}")
+        rows[entry].append(row)
+        del ker, ref
+
+    # the window-query path: the reference benchmark's §IV.B.2 query
+    t1, t2, valid = bench_query_lists()
+    on_card = [torch.from_numpy(x).to(dev) for x in (t1, t2, valid)]
+    reset_counts()
+    found, start = window_query_op(*on_card, *BENCH_QUERY)
+    torch.cuda.synchronize()
+    n = counts()
+    host = window_query_ref(*map(torch.from_numpy, (t1, t2, valid)),
+                            *BENCH_QUERY)
+    same = [bit_equal(a.cpu(), b) for a, b in zip((found, start), host)]
+    emit({"phase": "window_query_path", "entry": "window_query_op",
+          "devices": t1.shape[0], "windows": list(t1.shape[1:]),
+          "query": BENCH_QUERY, "launches": n["window_query"],
+          "found": int(found.sum()), "equal_to_host_plain_version": same})
+    check(n["window_query"] == 1, f"window_query_op launched the kernel "
+                                  f"{n['window_query']} times, not once")
+    check(all(same), "the window-query path differs from the plain version "
+                     "on the host")
+    return rows, n["window_query"]
+
+
+def time_window_query(dev, rows):
+    """Phase 10 for the window-query kernels, at every case: ``ms`` the
+    kernel's device time a launch, ``call_ms`` and ``plain_ms`` a call of
+    the wrapper and of the plain version in a loop of calls (CUDA events;
+    the host's cost a call bounds both at these sizes). It runs after the
+    main paths: once the profiler has run, every later launch costs the
+    host more. Returns each kernel's kernels-line row, at its main case."""
+    from repro_torch.kernels.window_query import window_query as wq
+    from repro_torch.kernels.window_query.ref import (
+        window_query_batched_ref, window_query_ref,
+    )
+
+    fns = {"window_query": (wq.window_query, window_query_ref),
+           "window_query_batched": (wq.window_query_batched,
+                                    window_query_batched_ref)}
+    done = {name: iter(r) for name, r in rows.items()}
+    for case, entry, xs in wq_cases(dev):
+        ker_fn, ref_fn = fns[entry]
+        row = next(done[entry])
+        bound_ms, bound_by, ops, nbytes = wq_bound(xs, entry != "window_query")
+        ms = device_ms(lambda: ker_fn(*xs), "window_query_kernel")
+        row.update({"ms": ms, "call_ms": time_ms(lambda: ker_fn(*xs)),
+                    "plain_ms": time_ms(lambda: ref_fn(*xs)),
+                    "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+                    "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
+                    "library_ms": None})
+        emit({"phase": "timing", "kernel": entry, **row})
+    main = {"window_query": "bench_query-1024dev",
+            "window_query_batched": "fleet-hp-view-8192"}
+    out = {}
+    for name, cases in rows.items():
+        top = next(c for c in cases if c["case"] == main[name])
+        out[name] = {
+            **{k: top[k] for k in ("case", "ms", "call_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "library_none_because": "no single PyTorch call computes the "
+                                    "masked min-reduce and its found flag",
+            "cases": [{k: c[k] for k in ("case", "ms", "call_ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")} for c in cases]}
+    return out
+
+
+def single_controller_phase(dev):
+    """Phase 11: ``hp_place`` on every device and ``lp_place`` of 4 tasks
+    (lp2 and lp4) from one loaded scheduler, on the card and on the host:
+    every output and state leaf bit for bit; ms a call on each."""
+    from repro_torch.core.tensor_state import (
+        CFG_INDEX, export_state, hp_place, lp_place,
+    )
+
+    sched = loaded_ras()
+    calls = [(hp_place, (d, 35.0), {"cfg_idx": 0}) for d in range(4)]
+    calls += [(lp_place, (src, 30.0, 90.0),
+               {"cfg_idx": CFG_INDEX[c], "n_tasks": 4})
+              for c in ("lp2", "lp4") for src in (0, 3)]
+
+    def leaves(out):
+        *head, state = out
+        return [*head, *state]
+
+    outs, ms = {}, {}
+    for where in ("cpu", dev):
+        st = export_state(sched, device=where)
+        outs[where] = [leaves(fn(st, *a, **kw)) for fn, a, kw in calls]
+        for fn in (hp_place, lp_place):
+            fn_calls = [c for c in calls if c[0] is fn]
+            _, secs = timed(lambda: [fn(st, *a, **kw)
+                                     for _ in range(5)
+                                     for _, a, kw in fn_calls])
+            ms[f"{fn.__name__}_{torch.device(where).type}"] = (
+                1e3 * secs / (5 * len(fn_calls)))
+    diff = [i for i, (a, b) in enumerate(zip(outs["cpu"], outs[dev]))
+            if not all(bit_equal(x, y.cpu()) for x, y in zip(a, b))]
+    placed = sum(int(o[1].sum()) for o in outs["cpu"][4:])
+    emit({"phase": "single_controller", "calls": len(calls),
+          "differing_calls": diff, "lp_tasks_placed": placed,
+          "hp_found": sum(int(o[0]) for o in outs["cpu"][:4]),
+          "ms_per_call": ms})
+    check(not diff, f"hp_place/lp_place differ between card and host in "
+                    f"calls {diff}")
+    check(placed > 0, "lp_place placed nothing")
+
+
+def fixture_phase(dev):
+    """Phase 12: the launch checker's racy fixture on the card, the
+    checker's verdicts, and the fixture's timing. Returns its kernels-line
+    row."""
+    from repro_torch.analysis import launch_check
+    from repro_torch.analysis.fixtures import racy_kernel as rk
+
+    n = RACY_N
+    x = torch.arange(1, 2 * n + 1, dtype=torch.float32, device=dev)
+    reset_counts()
+    out = rk.racy_sum(x)
+    torch.cuda.synchronize()
+    launches = counts()["racy_sum"]
+    w0, w1 = x[:n], x[n:] * 2.0          # block 0's and block 1's values
+    from0, from1 = int((out == w0).sum()), int((out == w1).sum())
+    # the distance of each output to the nearer writer's value
+    err = torch.minimum((out - w0).abs(), (out - w1).abs()).max().item()
+    differs = not torch.equal(out, rk.racy_sum_oracle(x))
+    race = launch_check.check_geometry(rk.race_geometry(n)[0])
+    report = launch_check.check_all()
+    bound_ms, bound_by, ops, nbytes = _bound(2 * n, FP32_OPS_PER_S, 12 * n)
+    row = {"case": f"n{n}",
+           "ms": device_ms(lambda: rk.racy_sum(x), "racy_sum_kernel"),
+           "call_ms": time_ms(lambda: rk.racy_sum(x)),
+           "plain_ms": time_ms(lambda: rk.racy_sum_ref(x)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+           "bytes": nbytes, "library_ms": None,
+           "library_none_because": "a racy fixture; no PyTorch call races",
+           "max_abs_err": err,
+           "max_abs_err_is": "each output's distance to the nearer of the "
+                             "two writers' values: the result is undefined "
+                             "by design"}
+    emit({"phase": "fixture", "kernel": "racy_sum", "outputs": n,
+          "launches": launches, "from_block_0": from0,
+          "from_block_1": from1, "differs_from_oracle": differs,
+          "race_flagged": [str(v) for v in race],
+          "production_registry": {k: report[k] for k in
+                                  ("ok", "n_kernels", "n_violations")},
+          **row})
+    check(launches == 1, f"racy_sum launched {launches} times, not once")
+    check(from0 + from1 == n and err == 0.0,
+          "racy_sum wrote a value that neither block computed")
+    check(differs, "racy_sum's output equals a correct reduction")
+    check([v.kind for v in race] == ["write-race"],
+          f"the checker did not flag racy_sum's launch: {race}")
+    check(report["ok"] and report["n_kernels"] >= 6,
+          f"the production launch registry is not clean: "
+          f"{report['violations']}")
+    return row, launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -816,6 +1152,7 @@ def main() -> None:
         del q, k, v, ker, ref
     torch.cuda.empty_cache()
     new_err, decode_pos = check_new_kernels(dev)
+    wq_rows, wq_path_launches = window_query_phase(dev)
 
     # -- 4. the fleet path --------------------------------------------------
     sweep = SweepConfig(scenarios=("uniform", "weighted2"),
@@ -827,12 +1164,14 @@ def main() -> None:
     fleet_run(make_fleet(B_MAIN, device=dev), warm_v, warm_bw, params=params)
     torch.cuda.synchronize()
 
-    placement.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     summary = run_sweep(sweep, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = placement.launches
+    fleet_counts = counts()
+    launches = fleet_counts["fused_place"]
+    hp_queries = fleet_counts["window_query_batched"]
     cells = summary["_sweep"]["cells"]
     residual = {c: summary[c]["conservation_residual"]["max_abs"]
                 for c in cells}
@@ -842,26 +1181,32 @@ def main() -> None:
           "replicas_per_s": B_MAIN / wall,
           "replica_frames_per_s": B_MAIN * N_FRAMES / wall,
           "fused_place_launches": launches,
+          "window_query_batched_launches": hp_queries,
           "frame_completion_rate": {
               c: summary[c]["frame_completion_rate"] for c in cells},
           "conservation_residual_max_abs": residual})
-    check(launches == LAUNCHES_PER_TICK * N_FRAMES,
+    check(launches == FUSED_PER_TICK * N_FRAMES,
           f"fused_place launched {launches} times, not "
-          f"{LAUNCHES_PER_TICK * N_FRAMES}")
+          f"{FUSED_PER_TICK * N_FRAMES}")
+    check(hp_queries == HP_QUERIES_PER_TICK * N_FRAMES,
+          f"window_query_batched launched {hp_queries} times, not "
+          f"{HP_QUERIES_PER_TICK * N_FRAMES}")
     check(all(v == 0 for v in residual.values()),
           f"LP tasks lost or double-counted: {residual}")
 
     # -- 5. the plain fleet path on the same batch ---------------------------
     _, values, bw, owners = _build_population(sweep)
-    runs = {}
+    runs, run_counts = {}, {}
     for backend in ("auto", "ref"):
         p = FleetParams(placement_backend=backend)
         torch.cuda.synchronize()
+        reset_counts()
         t0 = time.perf_counter()
         state, stats = fleet_run(make_fleet(B_MAIN, device=dev), values, bw,
                                  params=p)
         torch.cuda.synchronize()
         runs[backend] = (state, stats, time.perf_counter() - t0)
+        run_counts[backend] = {k: v for k, v in counts().items() if v}
     (sk, tk, wall_k), (sr, tr, wall_r) = runs["auto"], runs["ref"]
     diff = [f for f, a, b in zip(FleetStats._fields, tk, tr)
             if not bit_equal(a, b)]
@@ -877,7 +1222,12 @@ def main() -> None:
         for ci, c in enumerate(cells))
     emit({"phase": "plain_path", "differing": diff,
           "summaries_equal_main_path": same_summary,
+          "launches": run_counts,
           "kernel_path_seconds": wall_k, "plain_path_seconds": wall_r})
+    check(run_counts["ref"] == {} and run_counts["auto"] == {
+        "fused_place": FUSED_PER_TICK * N_FRAMES,
+        "window_query_batched": HP_QUERIES_PER_TICK * N_FRAMES},
+        f"fleet launches by backend: {run_counts}")
     check(not diff, f"kernel and plain main paths differ in {diff}")
     check(same_summary, "plain-path summaries differ from run_sweep's")
 
@@ -1082,6 +1432,11 @@ def main() -> None:
           / 20})
 
     new_rows = time_new_kernels(dev, new_err, decode_pos)
+    wq_rows = time_window_query(dev, wq_rows)
+
+    # -- 11. single controller; 12. the launch checker's fixture -------------
+    single_controller_phase(dev)
+    racy_row, racy_launches = fixture_phase(dev)
 
     def path_launches(name):
         """The kernel's launches on each main path that ran it (forward and
@@ -1101,6 +1456,13 @@ def main() -> None:
                 "ms": row["ms"], "plain_ms": row["plain_ms"],
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
+
+    def wq_entry(name, total, per, replaces):
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/window_query/csrc/"
+                          "window_query.cu",
+                "replaces": replaces, "launches": total,
+                "launches_by_path": per, "matched": True, **wq_rows[name]}
 
     attn_total, attn_per = path_launches("flash_attention")
     emit({"kernels": [{
@@ -1146,7 +1508,20 @@ def main() -> None:
         new_entry("flash_decode",
                   "src/repro_torch/kernels/flash_decode/csrc/"
                   "flash_decode.cu",
-                  "src/repro/kernels/flash_decode/flash_decode.py:80")]})
+                  "src/repro/kernels/flash_decode/flash_decode.py:80"),
+        wq_entry("window_query_batched", hp_queries,
+                 {"fleet run_sweep": hp_queries},
+                 "src/repro/kernels/window_query/window_query.py:115"),
+        wq_entry("window_query", wq_path_launches,
+                 {"window_query_op, bench_query's 1024 devices":
+                  wq_path_launches},
+                 "src/repro/kernels/window_query/window_query.py:47"),
+        {"name": "racy_sum", "route": "cuda",
+         "source": "src/repro_torch/analysis/fixtures/csrc/racy_sum.cu",
+         "replaces": "src/repro/analysis/fixtures/racy_kernel.py:31",
+         "launches": racy_launches,
+         "launches_by_path": {"launch-checker fixture": racy_launches},
+         "matched": True, **racy_row}]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})

@@ -5,6 +5,8 @@ arrays (or any object with the same field names, this package's
 ``FleetState`` included) and builds this package's state from copies of
 them, so that both engines can start from the same mid-run state.
 ``fleet_to_numpy`` and ``stats_to_numpy`` go the other way.
+``sched_state_from_numpy`` does the same for a single-controller
+``SchedState`` (the state of ``hp_place`` and ``lp_place``).
 ``model_params_from_numpy`` takes a ``repro`` ``Model.init`` parameter tree
 of numpy arrays and gives this package's ``Model`` state;
 ``decode_state_from_numpy`` does the same for a decode state. This module
@@ -37,13 +39,19 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.tensor(a, dtype=_DTYPES[a.dtype], device=device)
 
 
+def sched_state_from_numpy(s, *, device=None) -> SchedState:
+    """A copy of scheduler state ``s`` (unbatched or batched) on
+    ``device`` (``None`` -> CUDA)."""
+    device = resolve_device(device)
+    return SchedState(*(
+        _tensor(getattr(s, f), device) for f in SchedState._fields
+    ))
+
+
 def fleet_from_numpy(d, *, device=None) -> FleetState:
     """A copy of fleet state ``d`` on ``device`` (``None`` -> CUDA)."""
     device = resolve_device(device)
-    sched = SchedState(*(
-        _tensor(getattr(d.sched, f), device) for f in SchedState._fields
-    ))
-    return FleetState(sched, *(
+    return FleetState(sched_state_from_numpy(d.sched, device=device), *(
         _tensor(getattr(d, f), device) for f in FleetState._fields[1:]
     ))
 

@@ -172,3 +172,44 @@ class NetworkLink:
             "capacity": np.array([b.capacity for b in self.buckets], dtype=np.int32),
             "used": np.array([len(b.items) for b in self.buckets], dtype=np.int32),
         }
+
+
+# ---------------------------------------------------------------------------
+# Tensor functional form (the JAX package's ``index_of_jax``/``reserve_jax``)
+# ---------------------------------------------------------------------------
+
+import torch
+
+
+def index_of_torch(t_p, t_r, D, n_base, n_buckets):
+    """Closed-form bucket index, vectorised (mirrors NetworkLink.index_of);
+    the counterpart of ``index_of_jax``, equal to it on the same f32 inputs.
+
+    Every scalar is rounded to f32 first, as JAX's weak types are. ``%`` is
+    ``fmod``, exact, and equal to JAX's floor-mod on the non-negative
+    operand; the division is tensor by tensor (torch may turn a division by
+    a scalar into a product with its reciprocal); ``log2`` is ``log(x) /
+    log(2)``, as ``jnp.log2`` computes it, so its floor agrees at the powers
+    of two where ``torch.log2`` does not always."""
+    t_p = torch.as_tensor(t_p, dtype=torch.float32)
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=t_p.device)
+    D = f32(D)
+    delta = t_p - f32(t_r)
+    pos = torch.clamp(delta, min=0.0)
+    base_index = torch.ceil(pos / D) + (torch.fmod(pos, D) == 0.0)
+    units_past_base = base_index - f32(n_base)
+    k = torch.floor(torch.log(units_past_base / f32(2.0) + 1.0)
+                    / torch.log(f32(2.0)))
+    idx = torch.where(base_index < n_base, torch.floor(base_index),
+                      f32(n_base) + k)
+    idx = torch.where(delta < -D, -1.0, torch.clamp(idx, min=0.0))
+    return torch.clamp(idx, max=f32(n_buckets - 1)).to(torch.int32)
+
+
+def reserve_torch(t1, t2, capacity, used, t_p):
+    """First non-full bucket at/after ``t_p`` as a masked first-index
+    argmax (the counterpart of ``reserve_jax``): ``(found, idx)``, with
+    ``idx`` int32 and 0 where no bucket is free, as ``jnp.argmax`` gives."""
+    ok = (used < capacity) & (t2 > torch.as_tensor(
+        t_p, dtype=torch.float32, device=t2.device))
+    return ok.any(), ok.to(torch.int8).argmax().to(torch.int32)

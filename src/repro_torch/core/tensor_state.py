@@ -1,9 +1,10 @@
 """The paper's §IV data structures as tensors: the state the batched fleet
 engine carries, and the commit and compaction steps it applies to it.
 
-Counterpart of ``repro/core/jax_state.py`` (the fleet's part of it). The
-Python structures in ``windows.py`` / ``netlink.py`` remain the reference;
-``export_state`` converts a live RASScheduler.
+Counterpart of ``repro/core/jax_state.py``: the fleet's commit and
+compaction, and the single-controller placements ``hp_place`` and
+``lp_place``. The Python structures in ``windows.py`` / ``netlink.py``
+remain the reference; ``export_state`` converts a live RASScheduler.
 
 State layout (one NamedTuple of tensors):
 
@@ -23,6 +24,7 @@ order can flip a near-tie in the track ranking and trim another track.
 from __future__ import annotations
 
 import functools
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -263,3 +265,117 @@ def compact_state(state: SchedState) -> SchedState:
         state.win_t1, state.win_t2, state.win_valid
     )
     return state._replace(win_t1=t1, win_t2=t2, win_valid=valid)
+
+
+# ---------------------------------------------------------------------------
+# single-controller placement (pure functions of SchedState)
+# ---------------------------------------------------------------------------
+
+def _sanitize_unported(fn: str) -> None:
+    """``REPRO_SANITIZE=1`` asks for checked invariants that this package
+    does not have yet: refuse rather than run unchecked."""
+    if os.environ.get("REPRO_SANITIZE", "0") not in ("", "0"):
+        raise NotImplementedError(
+            f"{fn} with REPRO_SANITIZE set: the sanitizers are not ported "
+            f"yet (ROADMAP, modules of the port, item 6)")
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _device_slot(state: SchedState, dev, cfg_idx: int, q1, deadline, dur):
+    """Earliest feasible ``(found, start)`` on device ``dev`` and config
+    ``cfg_idx``. ``dev`` is an int or an index tensor; a tensor of devices
+    gives one answer each (the JAX package ``vmap``s this over devices).
+    The JAX package also returns the window's track and slot, which its
+    callers ignore."""
+    t1 = state.win_t1[dev, cfg_idx]          # [..., T, W]
+    t2 = state.win_t2[dev, cfg_idx]
+    valid = state.win_valid[dev, cfg_idx]
+    start = torch.maximum(t1, q1)
+    feasible = valid & (start + dur <= torch.minimum(t2, deadline))
+    best = torch.where(feasible, start, BIG).flatten(-2).amin(-1)
+    return best < BIG, best
+
+
+def _bisect(state: SchedState, dev, cfg_idx: int, s, e, do=True):
+    """Consume ``[s, e)`` from device ``dev`` across every config list (the
+    §IV.A.1 fan-out write) for a committed task of config ``cfg_idx``,
+    keeping every min-duration remainder; ``do`` masks the commit. Returns
+    ``(new_state, n_dropped)``. (The JAX package's ``track`` and ``slot``
+    arguments, which it ignores, are left out.)"""
+    device = state.win_t1.device
+    one = lambda x, dtype: torch.as_tensor(
+        x, dtype=dtype, device=device).reshape(1)
+    t1, t2, valid, n_drop, _ = fanout_commit(
+        state.win_t1[None], state.win_t2[None], state.win_valid[None],
+        state.min_dur[None], one(dev, torch.int32),
+        one(cfg_idx, torch.int32), one(s, torch.float32),
+        one(e, torch.float32), one(do, torch.bool),
+    )
+    return state._replace(
+        win_t1=t1[0], win_t2=t2[0], win_valid=valid[0]), n_drop[0]
+
+
+def hp_place(state: SchedState, dev, now, *, cfg_idx: int = 0):
+    """High-priority placement (§IV.B.1): strict containment of
+    ``[now, now + dur)`` on the source device ``dev``, committed.
+    Returns ``(found, start, new_state)``; ``state`` is left as it was."""
+    _sanitize_unported("hp_place")
+    device = state.win_t1.device
+    now = _f32(now, device)
+    dur = state.min_dur[cfg_idx]
+    found, start = _device_slot(
+        state, dev, cfg_idx, now, now + dur + _f32(1e-6, device), dur)
+    new_state, _ = _bisect(state, dev, cfg_idx, start, start + dur,
+                           do=found)
+    return found, start, new_state
+
+
+def lp_place(state: SchedState, src_dev, now, deadline, *,
+             cfg_idx: int = 1, n_tasks: int = 1):
+    """Low-priority request (§IV.B.2) of ``n_tasks`` tasks: for each in
+    turn, reserve a link slot, run the multi-containment query across all
+    devices, prefer the source device, commit the placement. Returns
+    ``(all_ok, oks, devs, starts, new_state)`` with ``oks``, ``devs``
+    (int32) and ``starts`` of length ``n_tasks``; ``state`` is left as it
+    was. The JAX package's ``lax.scan`` over the tasks is a loop here."""
+    _sanitize_unported("lp_place")
+    device = state.win_t1.device
+    now, deadline = _f32(now, device), _f32(deadline, device)
+    dur = state.min_dur[cfg_idx]
+    devs_all = torch.arange(state.win_t1.shape[0], dtype=torch.int32,
+                            device=device)
+    is_src = devs_all == torch.as_tensor(src_dev, device=device)
+    src_pref = torch.where(is_src, _f32(1e-3, device), _f32(0.0, device))
+    st = state
+    oks, devs, starts = [], [], []
+    for _ in range(n_tasks):
+        # link reservation: the first non-full bucket ending after now
+        ok_link = (st.link_used < st.link_cap) & (st.link_t2 > now)
+        idx = ok_link.to(torch.int8).argmax()
+        comm_ok = ok_link.any()
+        link_used = st.link_used.clone()
+        link_used[idx] += comm_ok.to(torch.int32)
+        comm_end = st.link_t2[idx]
+        st = st._replace(link_used=link_used)
+        # multi-containment across every device
+        founds, found_starts = _device_slot(
+            st, devs_all, cfg_idx, now, deadline, dur)
+        # remote devices cannot start before their transfer lands
+        starts_adj = torch.where(is_src, found_starts,
+                                 torch.maximum(found_starts, comm_end))
+        feasible = founds & (starts_adj + dur <= deadline)
+        feasible = feasible & (is_src | comm_ok)
+        # prefer the source device, then the earliest start
+        key = torch.where(feasible, starts_adj, BIG) - src_pref
+        d = key.argmin()
+        ok = feasible[d]
+        start = starts_adj[d]
+        st, _ = _bisect(st, d, cfg_idx, start, start + dur, do=ok)
+        oks.append(ok)
+        devs.append(d.to(torch.int32))
+        starts.append(start)
+    oks, devs, starts = torch.stack(oks), torch.stack(devs), torch.stack(starts)
+    return oks.all(), oks, devs, starts, st

@@ -231,3 +231,61 @@ class DeviceAvailability:
         """Drop completed work from the workload (bookkeeping only)."""
         self.workload = [t for t in self.workload if t.end_time is None or t.end_time > now]
 
+
+
+# ---------------------------------------------------------------------------
+# Tensor functional form (the JAX package's ``find_slot_arrays`` family)
+# ---------------------------------------------------------------------------
+
+import torch
+
+
+def _f32(x, like: torch.Tensor) -> torch.Tensor:
+    """A scalar rounded to f32 on ``like``'s device, as JAX's weak types
+    round a Python number that meets an f32 array."""
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+
+
+def _feasible_starts(t1, t2, valid, q1, deadline, dur):
+    start = torch.maximum(t1, _f32(q1, t1))
+    feasible = valid & (
+        start + _f32(dur, t1) <= torch.minimum(t2, _f32(deadline, t1)))
+    return feasible, start
+
+
+def find_slot_arrays(t1, t2, valid, q1, deadline, dur):
+    """Vectorised containment query over one availability list.
+
+    Args:
+      t1, t2: ``[tracks, windows]`` float32 window bounds.
+      valid:  ``[tracks, windows]`` bool mask.
+      q1, deadline, dur: scalars.
+
+    Returns ``(found, flat_index, start)`` — the earliest feasible slot, the
+    first one on ties, with ``inf`` where none is feasible; ``flat_index``
+    is int32, as JAX's ``argmin`` gives it.
+    """
+    feasible, start = _feasible_starts(t1, t2, valid, q1, deadline, dur)
+    key = torch.where(feasible, start, math.inf).reshape(-1)
+    flat = key.argmin()
+    best = key[flat]
+    return best < math.inf, flat.to(torch.int32), best
+
+
+def multi_find_slot(t1, t2, valid, q1, deadline, dur):
+    """Multi-containment query of §IV.B.2: ``find_slot_arrays`` on every
+    device at once. Shapes: ``[devices, tracks, windows]`` -> ``[devices]``
+    each (the JAX package ``vmap``s over the device axis)."""
+    feasible, start = _feasible_starts(t1, t2, valid, q1, deadline, dur)
+    key = torch.where(feasible, start, math.inf).reshape(t1.shape[0], -1)
+    flat = key.argmin(1)
+    best = key.gather(1, flat[:, None])[:, 0]
+    return best < math.inf, flat.to(torch.int32), best
+
+
+def count_feasible(t1, t2, valid, q1, deadline, dur):
+    """How many distinct slots exist network-wide (used for the early-exit
+    'fewer windows than tasks' check in §IV.B.2); int32, as JAX sums it
+    without x64."""
+    feasible, _ = _feasible_starts(t1, t2, valid, q1, deadline, dur)
+    return feasible.sum(dtype=torch.int32)

@@ -13,8 +13,10 @@ of a Monte-Carlo fleet at once, with the per-tick pipeline
 Every placement attempt is one call of ``fused_place_op``: on CUDA tensors
 one launch of the CUDA fused placement kernel for the whole fleet, 21 a
 tick with the re-queue buffer on (1 + 4·(1 + 4)), whatever the data, since
-each attempt is masked per replica and never skipped. The HP query and
-commit, compaction and the bookkeeping are plain PyTorch.
+each attempt is masked per replica and never skipped. Each device's HP
+query is one call of ``window_query_batched_op``, 4 launches of the CUDA
+window-query kernel a tick: 25 launches a tick in all. The HP commit,
+compaction and the bookkeeping are plain PyTorch.
 
 Every expression keeps the JAX package's operand order and dtypes, so a
 CPU run reproduces it bit for bit. Three rules make that hold:
@@ -43,6 +45,7 @@ from repro_torch.core.tensor_state import (
 from repro_torch.fleet.metrics import init_stats
 from repro_torch.fleet.state import FleetState
 from repro_torch.kernels.placement.ops import fused_place_op
+from repro_torch.kernels.window_query.ops import window_query_batched_op
 
 HP_IDX, LP2_IDX, LP4_IDX = 0, 1, 2
 MAX_LP = 4   # trace alphabet spawns at most 4 DNN tasks per frame
@@ -58,7 +61,8 @@ class FleetParams:
     hp_deadline: float = 3.0
     lp_deadline_factor: float = 1.2
     stagger: float = 1.0
-    #: fused_place_op backend: "auto" | "kernel" | "ref".
+    #: backend of both fleet kernels, fused_place_op and the HP query's
+    #: window_query_batched_op: "auto" | "kernel" | "ref".
     placement_backend: str = "auto"
     #: the Pallas kernel's replica tile; the CUDA kernel's block is fixed
     #: at 128 replicas and does not read it.
@@ -96,21 +100,23 @@ class _Clock:
         return (x.to(torch.float64) + self.prod).to(torch.float32)
 
 
-def _hp_query(st: SchedState, dev: int, now, dur, deadline):
+def _hp_query(st: SchedState, dev: int, now, dur, deadline,
+              backend: str = "auto"):
     """HP containment query on one device: a `dur` slot starting in
     [now, deadline - dur] (§IV.B.1), with ``deadline = now +
-    max(hp_deadline, dur + 1e-6)`` computed by the caller."""
-    t1 = st.win_t1[:, dev, HP_IDX]                    # [B, T, W]
-    t2 = st.win_t2[:, dev, HP_IDX]
-    valid = st.win_valid[:, dev, HP_IDX]
-    nowb = now[:, None, None]
-    durb = dur[:, None, None]
-    deadline = deadline[:, None, None]
-    start = torch.maximum(t1, nowb)
-    feasible = valid & (start + durb <= torch.minimum(t2, deadline))
-    key = torch.where(feasible, start, BIG).reshape(t1.shape[0], -1)
-    best = key.amin(1)
-    return best < BIG, best
+    max(hp_deadline, dur + 1e-6)`` computed by the caller.
+
+    One batched window query over the [B, 1, T, W] view of the device's HP
+    list, read in place. Where nothing is found, ``start`` is the window
+    query's BIG (3e38), not ``tensor_state.BIG`` (1e30) as in the JAX
+    package: the caller reads ``start`` only where ``found`` holds."""
+    d = slice(dev, dev + 1)
+    found, start = window_query_batched_op(
+        st.win_t1[:, d, HP_IDX], st.win_t2[:, d, HP_IDX],
+        st.win_valid[:, d, HP_IDX], now[:, None], deadline[:, None],
+        dur[:, None], backend=backend,
+    )
+    return found[:, 0].bool(), start[:, 0]
 
 
 def _hp_commit(st: SchedState, dev: int, s, e, do):
@@ -245,6 +251,7 @@ def _frame_step(carry, f: int, v, bws, p: FleetParams):
         hp_found, hp_start = _hp_query(
             st, d, now, hp_dur,
             now_plus(torch.clamp(hp_dur + 1e-6, min=p.hp_deadline)),
+            p.placement_backend,
         )
         if R > 0:
             # the serial engine evicts only a task whose reserved slot
@@ -257,6 +264,8 @@ def _frame_step(carry, f: int, v, bws, p: FleetParams):
         hp_ok = has_frame & (hp_found | victim_live)
         preempt = has_frame & ~hp_found & victim_live
         hp_fail = has_frame & ~hp_found & ~victim_live
+        # where nothing was found hp_start is the query's BIG; it is
+        # replaced here, before any use
         hp_start = torch.where(hp_found, hp_start, now)
         st, nd = _hp_commit(st, d, hp_start, hp_start + hp_dur, hp_ok)
         stats = stats._replace(

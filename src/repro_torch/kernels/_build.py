@@ -11,7 +11,12 @@ hashes its sources and flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is. Only the sources in the package are
 compiled. A build that fails raises with nvcc's output; nothing falls back
 to the plain version. ``check_tensor`` is the argument check every wrapper
-makes before it passes a pointer to its library.
+makes before it passes a pointer to its library; ``check_strided`` the one
+for a kernel that takes a tensor's strides along with its pointer.
+
+The analysis fixtures' CUDA sources (``SOURCE_DIRS``) build the same way
+but live outside ``kernels/``, so that the launch checker's registry, which
+walks ``kernels/``, never takes a fixture for a kernel of the port.
 """
 
 from __future__ import annotations
@@ -27,6 +32,10 @@ import torch
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "build"
+#: source directories of libraries that are not kernel packages
+SOURCE_DIRS = {
+    "racy_sum": KERNELS_DIR.parent / "analysis" / "fixtures" / "csrc",
+}
 
 #: ``--fmad=false``: no multiply-add contraction, so f32 results match the
 #: plain PyTorch versions bit for bit. Never ``--use_fast_math``.
@@ -41,6 +50,49 @@ _loaded: dict[str, ctypes.CDLL] = {}
 def check_tensor(kernel: str, name: str, x, dtype, shape, device) -> None:
     """Raise ``ValueError`` unless ``x`` is a contiguous CUDA tensor of
     ``dtype`` and ``shape`` on ``device``: ctypes passes only its pointer."""
+    _check_meta(kernel, name, x, dtype, shape, device)
+    if not x.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def check_strided(kernel: str, name: str, x, dtype, shape, device, *,
+                  inner: int) -> None:
+    """Raise ``ValueError`` unless ``x`` is a CUDA tensor of ``dtype`` and
+    ``shape`` on ``device`` whose last ``inner`` dims are contiguous and
+    every element of which lies inside its storage: the kernel gets its
+    pointer and its outer strides (torch strides are never negative)."""
+    _check_meta(kernel, name, x, dtype, shape, device)
+    want = 1
+    for size, stride in zip(reversed(x.shape[x.dim() - inner:]),
+                            reversed(x.stride()[x.dim() - inner:])):
+        if size != 1 and stride != want:
+            raise ValueError(f"{kernel}: the last {inner} dims of {name} "
+                             f"must be contiguous, not strides {x.stride()}")
+        want *= size
+    if x.numel():
+        last = x.storage_offset() + sum(
+            (n - 1) * s for n, s in zip(x.shape, x.stride()))
+        if last >= x.untyped_storage().nbytes() // x.element_size():
+            raise ValueError(f"{kernel}: {name}'s strides reach past its "
+                             f"storage")
+
+
+def launch_error(kernel: str, rc: int, error_string,
+                 unsupported: str = "unsupported shape") -> RuntimeError:
+    """The error of a launch function that returned ``rc`` != 0: -1 for a
+    shape its file was not instantiated for, -2 for a grid that is not the
+    one its tiling needs, else a CUDA error code (``error_string`` is the
+    library's ``<kernel>_error_string``)."""
+    if rc == -1:
+        msg = unsupported
+    elif rc == -2:
+        msg = "launch grid disagrees with the kernel's tiling"
+    else:
+        msg = error_string(rc).decode()
+    return RuntimeError(f"{kernel} launch failed ({rc}): {msg}")
+
+
+def _check_meta(kernel: str, name: str, x, dtype, shape, device) -> None:
     if not isinstance(x, torch.Tensor) or not x.is_cuda:
         raise ValueError(f"{kernel}: {name} must be a CUDA tensor")
     if x.device != device:
@@ -50,12 +102,11 @@ def check_tensor(kernel: str, name: str, x, dtype, shape, device) -> None:
     if tuple(x.shape) != shape:
         raise ValueError(f"{kernel}: {name} has shape {tuple(x.shape)}, "
                          f"not {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def _sources(name: str) -> list[Path]:
-    srcs = sorted((KERNELS_DIR / name / "csrc").glob("*.cu"))
+    root = SOURCE_DIRS.get(name, KERNELS_DIR / name / "csrc")
+    srcs = sorted(root.glob("*.cu"))
     if not srcs:
         raise FileNotFoundError(f"no CUDA sources for kernel {name!r}")
     return srcs

@@ -279,12 +279,16 @@ extern "C" {
 
 // Launches one attention over q [B,H,S,hd], k and v [B,K,S,hd] into o
 // [B,H,S,hd], on `stream`. is_bf16: 0 for float, 1 for bf16. Returns the
-// cudaGetLastError() code of the launch (0 on success), or -1 for an hd this
-// file was not instantiated for.
+// cudaGetLastError() code of the launch (0 on success), -1 for an hd this
+// file was not instantiated for, or -2 if (grid_x, grid_y, grid_z), the
+// wrapper's grid, is not the one this file's tiling needs.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int K, int S, int hd,
                            int is_bf16, int causal, int window, float scale,
-                           float softcap, void* stream) {
+                           float softcap, int grid_x, int grid_y, int grid_z,
+                           void* stream) {
+  if (grid_x != (S + kBQ - 1) / kBQ || grid_y != H || grid_z != B)
+    return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, K, S, causal,

@@ -28,7 +28,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P] * 4 + [_I] * 8 + [_F, _F, _P]   # as in flash_attention_launch
+_ARGTYPES = [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P]  # as in the .cu
+
+
+BLOCK_Q = 64   # query rows a block (kBQ of the .cu)
+
+
+def launch_grid(B: int, H: int, S: int) -> tuple[int, int, int]:
+    """The CUDA grid of a launch: one block per (64 query rows, head,
+    batch row), in (x, y, z) order, the last row block ragged.
+    ``geometry.py`` declares the same grid."""
+    return (-(-S // BLOCK_Q), H, B)
 
 
 def _lib() -> ctypes.CDLL:
@@ -75,11 +85,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, K, S, hd, _DTYPES[q.dtype], int(bool(causal)),
-            max(int(window), 0), hd ** -0.5, float(softcap), stream,
+            max(int(window), 0), hd ** -0.5, float(softcap),
+            *launch_grid(B, H, S), stream,
         )
     if rc != 0:
-        msg = ("unsupported head dim" if rc < 0
-               else lib.flash_attention_error_string(rc).decode())
-        raise RuntimeError(f"flash_attention launch failed ({rc}): {msg}")
+        raise _build.launch_error("flash_attention", rc,
+                                  lib.flash_attention_error_string,
+                                  "unsupported head dim")
     launches += 1
     return out

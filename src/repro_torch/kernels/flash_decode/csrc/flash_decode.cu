@@ -260,12 +260,14 @@ extern "C" {
 // Launches one decode attention of q [B,H,hd] (H = K * G) against the
 // caches k, v [B,S,K,hd] up to pos [B] (int32) into o [B,H,hd], on
 // `stream`. is_bf16: 0 for float, 1 for bf16. Returns the
-// cudaGetLastError() code of the launch (0 on success), or -1 for an hd
-// this file was not instantiated for.
+// cudaGetLastError() code of the launch (0 on success), -1 for an hd this
+// file was not instantiated for, or -2 if (grid_x, grid_y), the wrapper's
+// grid, is not the one this file's tiling needs.
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const void* pos, void* o, int B, int S, int K, int G,
                         int hd, int is_bf16, int window, float scale,
-                        float softcap, void* stream) {
+                        float softcap, int grid_x, int grid_y, void* stream) {
+  if (grid_x != K || grid_y != B) return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   if (is_bf16)

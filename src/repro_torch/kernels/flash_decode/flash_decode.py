@@ -31,12 +31,18 @@ _WARPS = 8                            # kWarps of the .cu
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P] * 5 + [_I] * 7 + [_F, _F, _P]   # as in flash_decode_launch
+_ARGTYPES = [_P] * 5 + [_I] * 7 + [_F, _F, _I, _I, _P]  # as in the .cu
 
 
 def smem_bytes(G: int, hd: int) -> int:
     """Dynamic shared memory of one launch (``smem_bytes`` of the .cu)."""
     return 4 * (G * hd * (1 + _WARPS) + 2 * _WARPS * G)
+
+
+def launch_grid(B: int, K: int) -> tuple[int, int]:
+    """The CUDA grid of a launch: one block per (kv head, batch row), in
+    (x, y) order. ``geometry.py`` declares the same grid."""
+    return (K, B)
 
 
 def _lib() -> ctypes.CDLL:
@@ -91,11 +97,11 @@ def flash_decode(q, k_cache, v_cache, pos, *, softcap: float = 0.0,
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             pos.data_ptr(), out.data_ptr(), B, S, K, H // K, hd,
             _DTYPES[q.dtype], max(int(window), 0), hd ** -0.5,
-            float(softcap), stream,
+            float(softcap), *launch_grid(B, K), stream,
         )
     if rc != 0:
-        msg = ("unsupported head dim" if rc < 0
-               else lib.flash_decode_error_string(rc).decode())
-        raise RuntimeError(f"flash_decode launch failed ({rc}): {msg}")
+        raise _build.launch_error("flash_decode", rc,
+                                  lib.flash_decode_error_string,
+                                  "unsupported head dim")
     launches += 1
     return out

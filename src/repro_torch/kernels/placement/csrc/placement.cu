@@ -214,16 +214,18 @@ void launch(void* t1, void* t2, void* valid, const void* min_dur, const void* q1
 extern "C" {
 
 // Launches one placement attempt on `stream`. Returns 0, the
-// cudaGetLastError() code of the launch, or -1 for a (T, W) this file was
-// not built for: the fleet's T=2 tracks of W=16 windows. The caller checks
-// shapes, types and contiguity.
+// cudaGetLastError() code of the launch, -1 for a (T, W) this file was not
+// built for (the fleet's T=2 tracks of W=16 windows), or -2 if grid_x, the
+// wrapper's grid, is not the one this file's tiling needs. The caller
+// checks shapes, types and contiguity.
 int fused_place_launch(void* t1, void* t2, void* valid, const void* min_dur,
                        const void* q1, const void* dl, const void* src,
                        const void* do_mask, void* ok, void* sel, void* start,
                        void* dur, void* use4, void* n_drop, int n_rows,
                        int n_dev, int n_tracks, int n_windows, int cfg_pref,
                        int cfg_fallback, int occ_bits, float big,
-                       float src_pref, void* stream) {
+                       float src_pref, int grid_x, void* stream) {
+  if (grid_x != (n_rows + kThreads - 1) / kThreads) return -2;
   if (n_rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FP_ARGS                                                             \

@@ -1,0 +1,56 @@
+"""Launch geometry of the fused placement kernel (``csrc/placement.cu``),
+for ``analysis/launch_check.py``.
+
+One thread a replica, blocks of ``BLOCK_B`` replicas, a grid of
+``launch_grid(B)``; the ragged last block is masked in the kernel, so the
+replica dim of every tensor is a masked dim. The commit is in place: the
+window tensors t1, t2 and valid are both inputs and the first three
+outputs, declared as aliases sharing their buffers, and a block touches
+only its own replicas' windows.
+"""
+
+from __future__ import annotations
+
+from repro_torch.analysis.launch_check import (
+    BlockDecl, KernelGeometry, register,
+)
+from repro_torch.kernels.placement.placement import BLOCK_B, launch_grid
+
+_MODULE = "repro_torch.kernels.placement.placement"
+
+
+def _case(B, Dev=4, CFG=3, T=2, W=16):
+    masked = frozenset({0})
+
+    def decl(name, tail, buf=None):
+        return BlockDecl(name, (B, *tail), (BLOCK_B, *tail),
+                         lambda i: (i,) + (0,) * len(tail),
+                         masked_dims=masked, buffer=buf)
+
+    win = (Dev, CFG, T, W)
+    return KernelGeometry(
+        kernel="placement", module=_MODULE,
+        case=f"B{B}Dev{Dev}CFG{CFG}T{T}W{W}", grid=launch_grid(B),
+        inputs=(
+            decl("t1", win, "win_t1"), decl("t2", win, "win_t2"),
+            decl("valid", win, "win_valid"), decl("min_dur", (CFG,)),
+            decl("q1", (Dev,)), decl("dl", (Dev,)), decl("src", ()),
+            decl("do", ()),
+        ),
+        outputs=(
+            decl("t1_out", win, "win_t1"), decl("t2_out", win, "win_t2"),
+            decl("valid_out", win, "win_valid"), decl("ok", ()),
+            decl("sel", ()), decl("start", ()), decl("dur", ()),
+            decl("use4", ()), decl("n_dropped", ()),
+        ),
+        # the windows are committed in place
+        aliases={0: 0, 1: 1, 2: 2},
+    )
+
+
+@register("placement")
+def geometries():
+    # chip_smoke.py's fleet batch and ragged batch, the fleet tests' B=17,
+    # and the placement tests' batches
+    return [_case(8192), _case(37), _case(17), _case(13), _case(5),
+            _case(1)]

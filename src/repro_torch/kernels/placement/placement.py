@@ -27,13 +27,20 @@ launches = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P] * 14 + [_I] * 7 + [_F, _F, _P]   # as in fused_place_launch
+_ARGTYPES = [_P] * 14 + [_I] * 7 + [_F, _F, _I, _P]  # as in fused_place_launch
 
 #: OCC_TABLE packed into 3-bit fields, row-major over (task cfg, list cfg)
 _OCC_BITS = sum(
     int(v) << (3 * i) for i, v in enumerate(OCC_TABLE.reshape(-1))
 )
 _SHAPES_BUILT = {(2, 16)}   # (T, W) instantiated in the .cu
+BLOCK_B = 128               # replicas a block, one a thread (kThreads)
+
+
+def launch_grid(B: int) -> tuple[int]:
+    """The CUDA grid of a launch over B replicas: blocks of ``BLOCK_B``,
+    the last one ragged. ``geometry.py`` declares the same grid."""
+    return (-(-B // BLOCK_B),)
 
 
 def _lib() -> ctypes.CDLL:
@@ -92,11 +99,11 @@ def fused_place(t1, t2, valid, min_dur, q1, dl, src, do, *,
             do.data_ptr(), ok.data_ptr(), sel.data_ptr(), start.data_ptr(),
             dur.data_ptr(), use4.data_ptr(), n_drop.data_ptr(),
             B, n_dev, T, W, cfg_pref, cfg_fallback, _OCC_BITS, BIG, SRC_PREF,
-            stream,
+            *launch_grid(B), stream,
         )
     if rc != 0:
-        msg = ("unsupported (T, W)" if rc < 0
-               else lib.fused_place_error_string(rc).decode())
-        raise RuntimeError(f"fused_place launch failed ({rc}): {msg}")
+        raise _build.launch_error("fused_place", rc,
+                                  lib.fused_place_error_string,
+                                  "unsupported (T, W)")
     launches += 1
     return t1, t2, valid, ok, sel, start, dur, use4, n_drop

@@ -248,10 +248,14 @@ extern "C" {
 // Launches one SSD scan of x [B,S,H,P], dt [B,S,H] (float), A [H] (float),
 // B, C [B,S,N] into y [B,S,H,P], on `stream`. is_bf16: 0 for float, 1 for
 // bf16 (x, B, C and y). Returns the cudaGetLastError() code of the launch
-// (0 on success), or -1 for a (P, N) this file was not instantiated for.
+// (0 on success), -1 for a (P, N) this file was not instantiated for, or -2
+// if (grid_x, grid_y), the wrapper's grid, is not the one this file's
+// tiling needs.
 int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, void* y, int B, int S,
-                    int H, int P, int N, int is_bf16, void* stream) {
+                    int H, int P, int N, int is_bf16, int grid_x, int grid_y,
+                    void* stream) {
+  if (grid_x != H || grid_y != B) return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* d = static_cast<const float*>(dt);
   const float* a = static_cast<const float*>(A);

@@ -26,7 +26,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 6 + [_P]   # as in ssd_scan_launch
+_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]   # as in ssd_scan_launch
+
+
+def launch_grid(B: int, H: int) -> tuple[int, int]:
+    """The CUDA grid of a launch: one block per (head, batch row), in
+    (x, y) order. ``geometry.py`` declares the same grid."""
+    return (H, B)
 
 
 def _lib() -> ctypes.CDLL:
@@ -72,11 +78,10 @@ def ssd_scan(x, dt, A, B, C):
         rc = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), y.data_ptr(), Bsz, S, H, P, N, _DTYPES[x.dtype],
-            stream,
+            *launch_grid(Bsz, H), stream,
         )
     if rc != 0:
-        msg = ("unsupported (head dim, state dim)" if rc < 0
-               else lib.ssd_scan_error_string(rc).decode())
-        raise RuntimeError(f"ssd_scan launch failed ({rc}): {msg}")
+        raise _build.launch_error("ssd_scan", rc, lib.ssd_scan_error_string,
+                                  "unsupported (head dim, state dim)")
     launches += 1
     return y

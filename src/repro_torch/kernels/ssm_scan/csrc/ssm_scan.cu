@@ -142,10 +142,14 @@ extern "C" {
 // Launches one selective scan of u, dt [B,S,di], A [di,N] (float), B, C
 // [B,S,N] into y [B,S,di], on `stream`. is_bf16: 0 for float, 1 for bf16
 // (u, dt, B, C and y). Returns the cudaGetLastError() code of the launch
-// (0 on success), or -1 for an N this file was not instantiated for.
+// (0 on success), -1 for an N this file was not instantiated for, or -2 if
+// (grid_x, grid_y), the wrapper's grid, is not the one this file's tiling
+// needs.
 int ssm_scan_launch(const void* u, const void* dt, const void* A,
                     const void* Bm, const void* Cm, void* y, int B, int S,
-                    int di, int N, int is_bf16, void* stream) {
+                    int di, int N, int is_bf16, int grid_x, int grid_y,
+                    void* stream) {
+  if (grid_x != (di + kThreads - 1) / kThreads || grid_y != B) return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(A);
   if (is_bf16)

@@ -26,7 +26,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]   # as in ssm_scan_launch
+_ARGTYPES = [_P] * 6 + [_I] * 7 + [_P]   # as in ssm_scan_launch
+
+
+BLOCK_D = 64   # channels a block, one a thread (kThreads of the .cu)
+
+
+def launch_grid(B: int, di: int) -> tuple[int, int]:
+    """The CUDA grid of a launch: one block per (64 channels, batch row),
+    in (x, y) order, the last channel block ragged. ``geometry.py``
+    declares the same grid."""
+    return (-(-di // BLOCK_D), B)
 
 
 def _lib() -> ctypes.CDLL:
@@ -70,11 +80,10 @@ def ssm_scan(u, dt, A, B, C):
         rc = lib.ssm_scan_launch(
             u.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), y.data_ptr(), Bsz, S, di, N, _DTYPES[u.dtype],
-            stream,
+            *launch_grid(Bsz, di), stream,
         )
     if rc != 0:
-        msg = ("unsupported state dim" if rc < 0
-               else lib.ssm_scan_error_string(rc).decode())
-        raise RuntimeError(f"ssm_scan launch failed ({rc}): {msg}")
+        raise _build.launch_error("ssm_scan", rc, lib.ssm_scan_error_string,
+                                  "unsupported state dim")
     launches += 1
     return y

@@ -270,8 +270,9 @@ def test_seq_sum_is_the_reference_order():
 def test_port_imports_without_jax_or_repro():
     """Every module of the port imports in a process where ``jax`` and
     ``repro`` cannot be imported at all: the fleet path, the serving path
-    with its model substrate and attention kernel, and the SSM and hybrid
-    families with their scan and decode kernels."""
+    with its model substrate and attention kernel, the SSM and hybrid
+    families with their scan and decode kernels, the window query and the
+    launch geometry checker with its fixture."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -311,5 +312,10 @@ def test_port_imports_without_jax_or_repro():
                  "kernels.ssm_scan.ref", "kernels.ssd_scan.ssd_scan",
                  "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",
                  "kernels.flash_decode.flash_decode",
-                 "kernels.flash_decode.ops", "kernels.flash_decode.ref"):
+                 "kernels.flash_decode.ops", "kernels.flash_decode.ref",
+                 "kernels.window_query.window_query",
+                 "kernels.window_query.ops", "kernels.window_query.ref",
+                 "kernels.window_query.geometry",
+                 "kernels.placement.geometry", "analysis.launch_check",
+                 "analysis.cli", "analysis.fixtures.racy_kernel"):
         assert f"repro_torch.{name}" in names, name
