@@ -18,7 +18,9 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    shapes (S 173 and 233, bf16 and f32), a qwen2.5-3b and a gemma2-2b local
    and global layer, a zamba2-7b layer (hd 112), a ragged small case and a
    non-causal one — within 2e-5 (f32) and 1.6e-2 (bf16, one ulp at
-   |out| < 4); ``ssm_scan``, ``ssd_scan`` and ``flash_decode`` at the layer
+   |out| < 4), every bf16 case on the tensor-core (wgmma) kernel and every
+   f32 case on the SIMT one; ``ssm_scan``, ``ssd_scan`` and ``flash_decode``
+   (a split pass and a combine pass a call) at the layer
    shapes of falcon-mamba-7b and zamba2-7b and at ragged small shapes —
    scans in f32 within 1e-4 of the largest |y|, bf16 outputs within one
    bf16 ulp of the largest |y| (the 1.6e-2 of attention below 4);
@@ -37,16 +39,18 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    final state, and the same cell summaries;
 6. serving path: ``serve`` of 40 frame periods of the full waste-pipeline
    config through the RAS scheduler and the WPS baseline; the attention
-   kernel must launch once per layer of every forward pass; then one engine
+   kernel must launch once per layer of every forward pass, on its wgmma
+   route (the config is bf16); then one engine
    built twice from the same weights, on the kernel and on the plain
    attention, must give equal serving results and logits within 2e-2 (bf16)
    and 1e-4 (f32) of the largest logit;
 7. hybrid path: the full zamba2-7b config (81 Mamba-2 blocks, 13 calls of
    the shared attention block, bf16, random weights from a seed): one
    ``Model.forward`` of 1 x 4096 tokens, which must launch ``ssd_scan`` 81
-   times and ``flash_attention`` 13 times, then 8 ``decode_step``s at
+   times and ``flash_attention`` 13 times (all on its wgmma route), then 8
+   ``decode_step``s at
    batch 4 against 32768-long caches filled from a seed, each launching
-   ``flash_decode`` 13 times;
+   ``flash_decode`` 13 times (13 split and 13 combine passes);
 8. ssm path: the full falcon-mamba-7b config (64 Mamba-1 blocks): one
    forward of 1 x 4096 tokens with 64 ``ssm_scan`` launches, then 8 decode
    steps at batch 128;
@@ -55,7 +59,9 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    a 4096 cache): logits within 2e-2 of the largest logit (bf16);
 10. timing: each kernel's time per launch at its shapes (CUDA events) beside
    its bound, the plain version's time and, where one PyTorch call computes
-   the same function, that call's time (a yardstick the port never calls);
+   the same function, that call's time (a yardstick the port never calls),
+   with each attention and decode case's TFLOP/s or GB/s and share of its
+   bound, and ptxas's registers and spills of their kernels;
    the window-query kernels' and the racy fixture's device time a launch
    (the profiler's device events); and where each path's time goes
    (``torch.profiler``);
@@ -111,6 +117,7 @@ ATTN_CASES = [
     ("bidirectional", 1, 4, 2, 300, 128, torch.float32, False, 0, 0.0),
 ]
 MAIN_ATTN_CASE = "waste-stage3-bf16"   # the stage-3 forward's attention
+ROUTES = ("wgmma", "simt")             # flash_attention's kernels
 KERNELS = ["placement", "flash_attention", "ssm_scan", "ssd_scan",
            "flash_decode", "window_query", "racy_sum"]
 BENCH_QUERY = (30.0, 90.0, 17.2)  # q1, deadline, dur of the reference's
@@ -195,27 +202,36 @@ def time_ms(fn, budget_ms: float = 100.0) -> float:
     return cuda_ms(fn, max(3, min(200, int(budget_ms / max(one, 1e-3)))))
 
 
-def device_ms(fn, kernel: str, iters: int = 50) -> float:
+def device_ms(fn, kernel: str, iters: int = 50) -> tuple[float, dict]:
     """Mean device milliseconds a launch of the kernel whose name contains
     ``kernel``, over ``iters`` calls of ``fn`` (the profiler's device
     events): the kernel's own time, where a loop of calls is bound by the
-    host's cost a call. The profiler may miss the first few launches after
-    it starts; the mean is over the events it recorded, at least half."""
+    host's cost a call. The profiler may miss the first launches after it
+    starts (a run once saw 18 of 50 window-query launches right after two
+    other profiled loops); the mean is over the events it recorded, at
+    least half of them, and a loop where it recorded fewer is measured
+    again, up to three times in all. Returns the mean and, for the run's
+    output, the loops profiled, the events of each and the calls a loop."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name]
-    check(iters // 2 <= len(spans) <= iters,
-          f"{len(spans)} device events of {kernel} in {iters} calls")
-    return sum(spans) / len(spans) / 1e3
+    events = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and kernel in e.name]
+        events.append(len(spans))
+        if iters // 2 <= len(spans) <= iters:
+            return sum(spans) / len(spans) / 1e3, {
+                "loops": len(events), "events": events, "calls": iters}
+    check(False, f"{len(spans)} device events of {kernel} in {iters} calls, "
+                 f"in each of three profiled loops")
 
 
 def attn_inputs(i, case, dev):
@@ -271,6 +287,37 @@ def library_attention(q, k, v, causal, window, cap):
                                                       attn_mask=mask)
     return lambda: F.scaled_dot_product_attention(q, ke, ve,
                                                   is_causal=causal)
+
+
+def ptxas_report(logs: dict, kernels) -> list:
+    """Registers, stack and spills of each instantiation of the named
+    kernels, from ``nvcc -Xptxas -v`` (``_build.build``'s logs), and whether
+    ptxas noted that it serialized the kernel's wgmma instructions (its
+    "Potential Performance Loss" notes C7510-C7519)."""
+    import re
+
+    args_re = re.compile(r"13__nv_bfloat16|f|Li(\d+)E")
+    out = []
+    for log in logs.values():
+        serialized = set(re.findall(r"\(C751\d\)[^\n]*?'(\w+)'", log))
+        parts = re.split(r"Compiling entry function '(\w+)'", log)
+        for fn, body in zip(parts[1::2], parts[2::2]):
+            base = next((k for k in kernels if k in fn), None)
+            if base is None:
+                continue
+            tmpl = fn[fn.index(base) + len(base) + 1:].split("EEv")[0] + "E"
+            args = [m.group(1) or {"f": "f32"}.get(m.group(0), "bf16")
+                    for m in args_re.finditer(tmpl)]
+            row = {"kernel": f"{base}<{','.join(args)}>"}
+            regs = re.search(r"Used (\d+) registers", body)
+            row["registers"] = int(regs.group(1)) if regs else None
+            for n, what in re.findall(
+                    r"(\d+) bytes (stack frame|spill stores|spill loads)",
+                    body):
+                row[what.replace(" ", "_")] = int(n)
+            row["wgmma_serialized"] = fn in serialized
+            out.append(row)
+    return out
 
 
 def busy_us(spans) -> float:
@@ -563,7 +610,12 @@ def counters() -> dict:
 
     return {"fused_place": (placement, "launches"),
             "flash_attention": (fa, "launches"),
-            "flash_decode": (fd, "launches"), "ssd_scan": (ssd, "launches"),
+            "flash_attention_wgmma": (fa, "launches_wgmma"),
+            "flash_attention_simt": (fa, "launches_simt"),
+            "flash_decode": (fd, "launches"),
+            "flash_decode_split": (fd, "launches_split"),
+            "flash_decode_combine": (fd, "launches_combine"),
+            "ssd_scan": (ssd, "launches"),
             "ssm_scan": (ssm, "launches"),
             "window_query": (wq, "launches"),
             "window_query_batched": (wq, "launches_batched"),
@@ -762,26 +814,47 @@ def time_new_kernels(dev, errs, decode_pos):
             "max_abs_err": errs[kernel]}
         emit({"phase": "timing", "kernel": kernel, **rows[kernel]})
         del xs
-    case = DECODE_CASES[0]
-    q, k, v, pos = decode_inputs(0, case, dev)
-    check(torch.equal(pos.cpu(), decode_pos[case[0]]),
-          "decode inputs are not reproducible")
-    bound_ms, bound_by, ops, nbytes = decode_bound(case, pos)
-    ms = time_ms(lambda: fd.flash_decode(q, k, v, pos))
-    lib = library_decode(q, k, v, pos)
-    rows["flash_decode"] = {
-        "case": case[0], "ms": ms,
-        "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, pos)),
-        "library_ms": time_ms(lib) if lib is not None else None,
-        "library_call": "scaled_dot_product_attention, boolean mask, "
-                        "caches transposed to [B,K,S,hd] outside the "
-                        "timed call, GQA not expanded (G = 1)",
-        "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
-        "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
-        "max_abs_err": errs["flash_decode"]}
+    for i, case in enumerate(DECODE_CASES):
+        name, B, H, K, S, *_ = case
+        q, k, v, pos = decode_inputs(i, case, dev)
+        check(torch.equal(pos.cpu(), decode_pos[name]),
+              "decode inputs are not reproducible")
+        kw = dict(window=case[-2], softcap=case[-1])
+        bound_ms, bound_by, ops, nbytes = decode_bound(case, pos)
+        call = lambda: fd.flash_decode(q, k, v, pos, **kw)
+        ms = time_ms(call)
+        row = {"case": name, "ms": ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "ops": ops, "bytes": nbytes,
+               "gb_per_s": nbytes / ms / 1e6, "share_of_bound": bound_ms / ms,
+               "n_split": fd.n_split(B, K, S),
+               "chunk": fd.chunk_size(B, K, S)}
+        if i == 0:   # the main shape: its plain version and SDPA
+            lib = library_decode(q, k, v, pos)
+            row.update({
+                "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v,
+                                                                 pos)),
+                "library_ms": time_ms(lib) if lib is not None else None,
+                "library_call": "scaled_dot_product_attention, boolean "
+                                "mask, caches transposed to [B,K,S,hd] "
+                                "outside the timed call, GQA not expanded "
+                                "(G = 1)",
+                "max_abs_err": errs["flash_decode"]})
+            rows["flash_decode"] = row
+            del lib
+        emit({"phase": "timing", "kernel": "flash_decode", **row})
+        del q, k, v
+    # the two passes' device times at the main shape, from the profiler, last:
+    # once it has run, every later launch costs the host more
+    q, k, v, pos = decode_inputs(0, DECODE_CASES[0], dev)
+    call = lambda: fd.flash_decode(q, k, v, pos)
+    passes = {}
+    for part in ("split", "combine"):
+        ms, seen = device_ms(call, f"flash_decode_{part}_kernel")
+        passes.update({f"{part}_ms": ms, f"{part}_device_events": seen})
+    rows["flash_decode"].update(passes)
     emit({"phase": "timing", "kernel": "flash_decode",
-          **rows["flash_decode"]})
-    del q, k, v, lib
+          "case": DECODE_CASES[0][0], **passes})
+    del q, k, v
     gc.collect()
     torch.cuda.empty_cache()
     return rows
@@ -953,8 +1026,8 @@ def time_window_query(dev, rows):
         ker_fn, ref_fn = fns[entry]
         row = next(done[entry])
         bound_ms, bound_by, ops, nbytes = wq_bound(xs, entry != "window_query")
-        ms = device_ms(lambda: ker_fn(*xs), "window_query_kernel")
-        row.update({"ms": ms, "call_ms": time_ms(lambda: ker_fn(*xs)),
+        ms, seen = device_ms(lambda: ker_fn(*xs), "window_query_kernel")
+        row.update({"ms": ms, "device_events": seen, "call_ms": time_ms(lambda: ker_fn(*xs)),
                     "plain_ms": time_ms(lambda: ref_fn(*xs)),
                     "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
                     "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
@@ -1039,8 +1112,8 @@ def fixture_phase(dev):
     race = launch_check.check_geometry(rk.race_geometry(n)[0])
     report = launch_check.check_all()
     bound_ms, bound_by, ops, nbytes = _bound(2 * n, FP32_OPS_PER_S, 12 * n)
-    row = {"case": f"n{n}",
-           "ms": device_ms(lambda: rk.racy_sum(x), "racy_sum_kernel"),
+    ms, seen = device_ms(lambda: rk.racy_sum(x), "racy_sum_kernel")
+    row = {"case": f"n{n}", "ms": ms, "device_events": seen,
            "call_ms": time_ms(lambda: rk.racy_sum(x)),
            "plain_ms": time_ms(lambda: rk.racy_sum_ref(x)),
            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
@@ -1108,6 +1181,16 @@ def main() -> None:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": sorted(logs),
           "nvcc": {k: v.splitlines() for k, v in logs.items()}})
+    # a library taken from an earlier build has no log to report
+    ptxas = ptxas_report(logs, ("flash_attention_wgmma_kernel",
+                                "flash_decode_split_kernel",
+                                "flash_decode_combine_kernel"))
+    emit({"phase": "ptxas", "of": "the attention and decode kernels",
+          "from_cache": sorted({"flash_attention", "flash_decode"}
+                               - set(logs)),
+          "kernels": ptxas})
+    serialized = [r["kernel"] for r in ptxas if r["wgmma_serialized"]]
+    check(not serialized, f"ptxas serialized the wgmmas of {serialized}")
 
     # -- 3. kernel against its plain version ---------------------------------
     def on_card(case):
@@ -1133,14 +1216,17 @@ def main() -> None:
         name, *_, dt, causal, window, cap = c
         q, k, v = attn_inputs(i, c, dev)
         kw = dict(causal=causal, window=window, softcap=cap)
+        reset_counts()
         ker = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        routes = {r: counts()[f"flash_attention_{r}"] for r in ROUTES}
         ref = attention_ref(q, k, v, **kw)
         err = max_abs_err([ref], [ker])
         attn_err[name] = err
         emit({"phase": "kernel", "kernel": "flash_attention", "case": name,
               "shape": list(q.shape), "kv_heads": k.shape[1],
-              "dtype": str(dt), **kw, "max_abs_err": err,
+              "dtype": str(dt), **kw, "route_launches": routes,
+              "max_abs_err": err,
               "max_abs_out": ref.float().abs().max().item(),
               "tolerance": ATTN_TOL[dt],
               "finite": bool(torch.isfinite(ker).all())})
@@ -1149,6 +1235,9 @@ def main() -> None:
               f"flash_attention gave a bad result in case {name}")
         check(err <= ATTN_TOL[dt], f"flash_attention differs from its plain "
                                    f"version in case {name}: {err}")
+        want = {r: int(r == fa.route(dt)) for r in ROUTES}
+        check(routes == want, f"flash_attention case {name} ({dt}) took "
+                              f"the routes {routes}, not {want}")
         del q, k, v, ker, ref
     torch.cuda.empty_cache()
     new_err, decode_pos = check_new_kernels(dev)
@@ -1246,7 +1335,8 @@ def main() -> None:
     serve_launches, serve_forwards = 0, 0
     for sched in ("ras", "wps"):
         torch.cuda.synchronize()
-        fa.launches = placement.launches = engine.forwards = 0
+        reset_counts()
+        engine.forwards = 0
         t0 = time.perf_counter()
         out = serve(arch="waste-pipeline", frames=SERVE_PERIODS,
                     scheduler=sched, trace="weighted2", seed=0,
@@ -1259,10 +1349,14 @@ def main() -> None:
         emit({"phase": "serving_path", "entry": "serve", **out,
               "seconds": wall, "forward_passes": n_fwd,
               "flash_attention_launches": n_launch,
+              "flash_attention_wgmma_launches": fa.launches_wgmma,
               "fused_place_launches": placement.launches})
         check(n_launch > 0 and n_launch == wcfg.n_layers * n_fwd,
               f"flash_attention launched {n_launch} times for {n_fwd} "
               f"forward passes of {wcfg.n_layers} layers")
+        check(fa.launches_wgmma == n_launch,
+              f"{n_launch - fa.launches_wgmma} of the serving path's "
+              f"attention launches missed the wgmma route")
         check(out["frames_submitted"] > 0
               and 0.0 <= out["completion_rate"] <= 1.0,
               f"serve({sched}) gave {out}")
@@ -1327,8 +1421,11 @@ def main() -> None:
     launches_by_path["zamba2-7b"] = model_path(
         "zamba2-7b", dev,
         want_fwd={"ssd_scan": zcfg.n_layers, "flash_attention": n_attn,
-                  "ssm_scan": 0, "flash_decode": 0},
-        want_step={"flash_decode": n_attn, "ssd_scan": 0,
+                  "flash_attention_wgmma": n_attn,
+                  "flash_attention_simt": 0, "ssm_scan": 0,
+                  "flash_decode": 0},
+        want_step={"flash_decode": n_attn, "flash_decode_split": n_attn,
+                   "flash_decode_combine": n_attn, "ssd_scan": 0,
                    "flash_attention": 0},
         decode_batch=HYBRID_DECODE[0], cache_len=HYBRID_DECODE[1], seed=0)
 
@@ -1338,7 +1435,8 @@ def main() -> None:
         "falcon-mamba-7b", dev,
         want_fwd={"ssm_scan": fcfg.n_layers, "ssd_scan": 0,
                   "flash_attention": 0},
-        want_step={"ssm_scan": 0, "flash_decode": 0},
+        want_step={"ssm_scan": 0, "flash_decode": 0,
+                   "flash_decode_split": 0, "flash_decode_combine": 0},
         decode_batch=SSM_DECODE_BATCH, cache_len=HYBRID_DECODE[1], seed=1)
 
     # -- 9. kernel path vs plain path at model level --------------------------
@@ -1396,10 +1494,11 @@ def main() -> None:
         lib = library_attention(q, k, v, causal, window, cap)
         lib_ms = time_ms(lib) if lib is not None else None
         bound_ms, bound_by, flops, nbytes = attn_bound(c)
-        row = {"case": name, "ms": ker_ms, "plain_ms": ref_ms,
-               "library_ms": lib_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-               "tflops": flops / ker_ms / 1e9,
+        row = {"case": name, "route": fa.route(c[6]), "ms": ker_ms,
+               "plain_ms": ref_ms, "library_ms": lib_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes, "tflops": flops / ker_ms / 1e9,
+               "share_of_bound": bound_ms / ker_ms,
                "max_abs_err": attn_err[name]}
         attn_rows.append(row)
         emit({"phase": "timing", "kernel": "flash_attention", **row})
@@ -1483,7 +1582,12 @@ def main() -> None:
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_wgmma.cu",
+        "sources_by_dtype": {
+            "bfloat16": "src/repro_torch/kernels/flash_attention/csrc/"
+                        "flash_attention_wgmma.cu",
+            "float32": "src/repro_torch/kernels/flash_attention/csrc/"
+                       "flash_attention.cu"},
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:100",
         "launches": attn_total,
         "launches_by_path": attn_per,
@@ -1496,8 +1600,9 @@ def main() -> None:
         "bound_ms": main_attn["bound_ms"],
         "bound_by": main_attn["bound_by"],
         "library_ms": main_attn["library_ms"],
-        "cases": [{k: r[k] for k in ("case", "ms", "plain_ms", "library_ms",
-                                     "bound_ms", "bound_by")}
+        "cases": [{k: r[k] for k in ("case", "route", "ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by",
+                                     "share_of_bound")}
                   for r in attn_rows],
     }, new_entry("ssd_scan",
                  "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
@@ -1505,10 +1610,16 @@ def main() -> None:
         new_entry("ssm_scan",
                   "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
                   "src/repro/kernels/ssm_scan/ssm_scan.py:61"),
-        new_entry("flash_decode",
-                  "src/repro_torch/kernels/flash_decode/csrc/"
-                  "flash_decode.cu",
-                  "src/repro/kernels/flash_decode/flash_decode.py:80"),
+        {**new_entry("flash_decode",
+                     "src/repro_torch/kernels/flash_decode/csrc/"
+                     "flash_decode.cu",
+                     "src/repro/kernels/flash_decode/flash_decode.py:80"),
+         "launches_split": path_launches("flash_decode_split")[0],
+         "launches_combine": path_launches("flash_decode_combine")[0],
+         **{k: new_rows["flash_decode"][k]
+            for k in ("split_ms", "combine_ms")},
+         "launch_parameters": {k: new_rows["flash_decode"][k]
+                               for k in ("n_split", "chunk")}},
         wq_entry("window_query_batched", hp_queries,
                  {"fleet run_sweep": hp_queries},
                  "src/repro/kernels/window_query/window_query.py:115"),

@@ -81,12 +81,16 @@ def launch_error(kernel: str, rc: int, error_string,
                  unsupported: str = "unsupported shape") -> RuntimeError:
     """The error of a launch function that returned ``rc`` != 0: -1 for a
     shape its file was not instantiated for, -2 for a grid that is not the
-    one its tiling needs, else a CUDA error code (``error_string`` is the
-    library's ``<kernel>_error_string``)."""
+    one its tiling needs, -3 for a TMA tensor map the driver refused, else
+    a CUDA error code (``error_string`` is the library's
+    ``<kernel>_error_string``)."""
     if rc == -1:
         msg = unsupported
     elif rc == -2:
         msg = "launch grid disagrees with the kernel's tiling"
+    elif rc == -3:
+        msg = ("the driver refused a TMA tensor map (it takes 16-byte "
+               "aligned tensors only)")
     else:
         msg = error_string(rc).decode()
     return RuntimeError(f"{kernel} launch failed ({rc}): {msg}")

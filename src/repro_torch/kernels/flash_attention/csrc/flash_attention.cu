@@ -1,37 +1,39 @@
-// Causal / sliding-window / soft-capped GQA attention (prefill), for Hopper
-// (sm_90a).
+// Causal / sliding-window / soft-capped GQA attention (prefill) in f32 on
+// the CUDA cores, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py::
-// flash_attention (Pallas body _attn_kernel). It computes what the plain
-// version kernels/flash_attention/ref.py::attention_ref computes:
+// flash_attention (Pallas body _attn_kernel) for f32 inputs; bf16 inputs
+// take the tensor-core kernel of flash_attention_wgmma.cu. On the tensor
+// cores f32 would run as TF32 (a 10-bit mantissa) and miss the f32
+// tolerance (2e-5), so f32 stays here; no model path runs f32 attention on
+// the card. It computes what the plain version
+// kernels/flash_attention/ref.py::attention_ref computes:
 //
 //   s   = (q . k) * hd^-0.5, then tanh(s / softcap) * softcap if softcap > 0;
 //   s   = NEG_INF (-1e30) where the key is masked: k_pos > q_pos (causal),
 //         q_pos - k_pos >= window (window > 0), or k_pos >= S (ragged edge);
-//   out = softmax(s) v, with f32 accumulation, written in the input type.
+//   out = softmax(s) v, with f32 accumulation.
 //
-// q is [B,H,S,hd], k and v are [B,K,S,hd], all contiguous; query head h
-// reads kv head h / (H / K). Element type float or bf16 (converted with
-// __bfloat162float / __float2bfloat16); hd in {32, 64, 112, 128, 256}.
+// q is [B,H,S,hd], k and v are [B,K,S,hd], all contiguous f32; query head h
+// reads kv head h / (H / K); hd in {32, 64, 112, 128, 256}.
 //
 // Design: one block of 256 threads per (b, h, tile of 64 query rows). The
 // TPU kernel's sequential k grid axis, whose running max m, normaliser l and
 // accumulator acc lived in VMEM scratch, becomes a loop over tiles of 64 keys
 // inside the block; m, l and acc live in registers. Only the key tiles that
 // the causal and window masks leave partly visible are visited. The block's
-// q tile and each k and v tile are converted to f32 into shared memory (rows
-// of q and k padded by one float, so the 16 lanes that read 16 key rows hit
-// 16 banks); a thread holds a 4 x 4 block of the 64 x 64 score tile and a
-// 4 x hd/16 block of acc. Row max and row sum are reduced across the 16
-// lanes of a row with warp shuffles; p goes through shared memory to the PV
-// product. A masked score contributes p = 0, so a row with no visible key in
-// a tile leaves its m, l and acc as they were. The final division uses
+// q tile and each k and v tile are staged in shared memory (rows of q and k
+// padded by one float, so the 16 lanes that read 16 key rows hit 16 banks);
+// a thread holds a 4 x 4 block of the 64 x 64 score tile and a 4 x hd/16
+// block of acc. Row max and row sum are reduced across the 16 lanes of a row
+// with warp shuffles; p goes through shared memory to the PV product. A
+// masked score contributes p = 0, so a row with no visible key in a tile
+// leaves its m, l and acc as they were. The final division uses
 // max(l, 1e-30), as the reference does. At hd=256 the tiles take 213,760
 // bytes of dynamic shared memory (over 48 KB, so the launch raises the
-// limit with cudaFuncAttributeMaxDynamicSharedMemorySize); at zamba2's hd 112
-// (7 output columns a thread) they take 103,168. The ragged S edge
-// is masked in the kernel: key rows past S load as zero and are masked,
-// query rows past S are not stored.
+// limit with cudaFuncAttributeMaxDynamicSharedMemorySize). The ragged S
+// edge is masked in the kernel: key rows past S load as zero and are
+// masked, query rows past S are not stored.
 //
 // Arithmetic is f32 on the CUDA cores: the dot products are explicit fmaf,
 // expf and tanhf are the accurate libdevice versions. The library is built
@@ -40,20 +42,11 @@
 // compiler from contracting the few separate multiplies and adds of the
 // softmax update, which the reference rounds separately too.
 //
-// Bound on the H100: at the long shapes (S = 4096-8192) the work is
-// 4 * hd * (visible score entries) * B * H FLOPs, which at the 989 TFLOP/s
-// bf16 tensor-core rate takes 69-278 us; the bytes of q, k, v and o take a
-// few us at 3.35 TB/s. This first version leaves the tensor cores idle: it
-// runs on the CUDA cores (67 TFLOP/s f32 at best) out of shared memory, so
-// it is expected to be one to two orders of magnitude off that bound.
-// wgmma, TMA and a warp-specialised pipeline are later work. At the waste
-// pipeline's shapes (B=1, H=8, S <= 233, hd=64) a launch moves under 1 MB
-// and does 0.03 GFLOP: the launch latency bounds it. Measured by
-// chip_smoke.py (NVIDIA H100 80GB HBM3, 700 W): 3.2 ms at qwen2.5-3b's
-// S 4096 and 10-14 ms at gemma2-2b's S 8192, 20-21 TFLOP/s, 47-49x off the
-// bound; 45 us a launch at the waste pipeline's shapes.
+// Bound on the H100: 4 * hd * (visible score entries) * B * H FLOPs at the
+// 67 TFLOP/s f32 rate of the CUDA cores; at the small shapes the f32 checks
+// use (S <= 300) the launch latency bounds it. Measured by chip_smoke.py:
+// PERF.md section 6.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,15 +60,6 @@ constexpr int kThreads = kTX * kTY;
 constexpr int kRows = kBQ / kTY;    // query rows per thread
 constexpr int kCols = kBK / kTX;    // keys per thread in a tile
 constexpr float kNegInf = -1e30f;   // NEG_INF of the reference
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -117,7 +101,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const int r = i / HD, c = i % HD;
     const int qpos = q0 + r;
     sQ[r * QS + c] =
-        qpos < S ? to_f32(q[q_base + (long long)qpos * HD + c]) : 0.0f;
+        qpos < S ? q[q_base + (long long)qpos * HD + c] : 0.0f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kDims];
@@ -142,8 +126,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       const int r = i / HD, c = i % HD;
       const int kpos = k0 + r;
       const long long off = kv_base + (long long)kpos * HD + c;
-      sK[r * QS + c] = kpos < S ? to_f32(k[off]) : 0.0f;
-      sV[r * HD + c] = kpos < S ? to_f32(v[off]) : 0.0f;
+      sK[r * QS + c] = kpos < S ? k[off] : 0.0f;
+      sV[r * HD + c] = kpos < S ? v[off] : 0.0f;
     }
     __syncthreads();
 
@@ -225,7 +209,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     T* row = o + q_base + (long long)qpos * HD;
 #pragma unroll
     for (int d = 0; d < kDims; ++d)
-      store(row + tx + kTX * d, acc[i][d] / denom);
+      row[tx + kTX * d] = acc[i][d] / denom;
   }
 }
 
@@ -277,24 +261,19 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// Launches one attention over q [B,H,S,hd], k and v [B,K,S,hd] into o
-// [B,H,S,hd], on `stream`. is_bf16: 0 for float, 1 for bf16. Returns the
-// cudaGetLastError() code of the launch (0 on success), -1 for an hd this
-// file was not instantiated for, or -2 if (grid_x, grid_y, grid_z), the
-// wrapper's grid, is not the one this file's tiling needs.
+// Launches one f32 attention over q [B,H,S,hd], k and v [B,K,S,hd] into o
+// [B,H,S,hd], on `stream`. Returns the cudaGetLastError() code of the
+// launch (0 on success), -1 for an hd this file was not instantiated for,
+// or -2 if (grid_x, grid_y, grid_z), the wrapper's grid, is not the one this
+// file's tiling needs.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int B, int H, int K, int S, int hd,
-                           int is_bf16, int causal, int window, float scale,
-                           float softcap, int grid_x, int grid_y, int grid_z,
-                           void* stream) {
+                           int causal, int window, float scale, float softcap,
+                           int grid_x, int grid_y, int grid_z, void* stream) {
   if (grid_x != (S + kBQ - 1) / kBQ || grid_y != H || grid_z != B)
     return -2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, H, K, S, causal,
-                                    window, scale, softcap, st);
   return launch_hd<float>(hd, q, k, v, o, B, H, K, S, causal, window, scale,
-                          softcap, st);
+                          softcap, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int code) {

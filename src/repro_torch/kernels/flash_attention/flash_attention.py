@@ -1,14 +1,21 @@
-"""Wrapper of the CUDA flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the CUDA flash-attention kernels (``csrc/``).
 
 Replaces the TPU kernel
 ``repro/kernels/flash_attention/flash_attention.py::flash_attention``.
 One launch computes causal or bidirectional GQA attention with an optional
 sliding window and tanh soft-cap for every (batch, head, query tile), at any
-sequence length: the kernel masks its own ragged edge.
+sequence length: the kernels mask their own ragged edge.
 
-The kernel is built with ``nvcc`` on first use (``kernels/_build.py``) and
-called through ``ctypes`` on PyTorch's current stream. It takes CUDA
-tensors only; anything else raises.
+The route follows from the dtype alone (``route``): bf16 inputs take the
+tensor-core kernel (``csrc/flash_attention_wgmma.cu``: wgmma, TMA, a
+producer warpgroup and two consumer warpgroups, P as two bf16 halves); f32
+inputs take the SIMT kernel (``csrc/flash_attention.cu``: f32 on the CUDA
+cores), since on the tensor cores f32 would run as TF32 and miss its
+tolerance.
+
+Both kernels are built into one library with ``nvcc`` on first use
+(``kernels/_build.py``) and called through ``ctypes`` on PyTorch's current
+stream. They take CUDA tensors only; anything else raises.
 """
 
 from __future__ import annotations
@@ -19,33 +26,46 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: kernel launches since the last reset (one per attention layer a forward)
+#: kernel launches since the last reset (one per attention layer a forward),
+#: and the same launches by route
 launches = 0
+launches_wgmma = 0
+launches_simt = 0
 
-HEAD_DIMS = (32, 64, 112, 128, 256)   # instantiated in the .cu
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 112, 128, 256)   # instantiated in both .cu files
+ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
+#: query rows a block (kBQ of each .cu)
+BLOCK_Q = {"wgmma": 128, "simt": 64}
+_ENTRY = {"wgmma": "flash_attention_wgmma_launch",
+          "simt": "flash_attention_launch"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P] * 4 + [_I] * 8 + [_F, _F] + [_I] * 3 + [_P]  # as in the .cu
+_ARGTYPES = [_P] * 4 + [_I] * 7 + [_F, _F] + [_I] * 3 + [_P]  # as in the .cu
 
 
-BLOCK_Q = 64   # query rows a block (kBQ of the .cu)
+def route(dtype: torch.dtype) -> str:
+    """The kernel a dtype takes: "wgmma" for bf16, "simt" for f32."""
+    if dtype not in ROUTES:
+        raise ValueError(f"flash_attention: unsupported dtype {dtype}")
+    return ROUTES[dtype]
 
 
-def launch_grid(B: int, H: int, S: int) -> tuple[int, int, int]:
-    """The CUDA grid of a launch: one block per (64 query rows, head,
-    batch row), in (x, y, z) order, the last row block ragged.
-    ``geometry.py`` declares the same grid."""
-    return (-(-S // BLOCK_Q), H, B)
+def launch_grid(B: int, H: int, S: int,
+                route: str) -> tuple[int, int, int]:
+    """The CUDA grid of a launch of ``route``'s kernel: one block per
+    (BLOCK_Q[route] query rows, head, batch row), in (x, y, z) order, the
+    last row block ragged. ``geometry.py`` declares the same grid."""
+    return (-(-S // BLOCK_Q[route]), H, B)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.library("flash_attention")
     if lib.flash_attention_launch.argtypes is None:
-        lib.flash_attention_launch.argtypes = _ARGTYPES
-        lib.flash_attention_launch.restype = ctypes.c_int
+        for name in _ENTRY.values():
+            getattr(lib, name).argtypes = _ARGTYPES
+            getattr(lib, name).restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -57,7 +77,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     bf16, on one CUDA device -> [B,H,S,hd] in q's dtype. ``window`` > 0
     keeps keys with ``q_pos - k_pos < window``; ``softcap`` > 0 applies
     ``tanh(s / softcap) * softcap`` to the scaled scores."""
-    global launches
+    global launches, launches_wgmma, launches_simt
     if not isinstance(q, torch.Tensor) or not q.is_cuda:
         raise ValueError("flash_attention runs on CUDA tensors only; use "
                          "attention_ref for tensors on the host")
@@ -65,8 +85,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("flash_attention: q, k and v must be 4-d")
     B, H, S, hd = q.shape
     K = k.shape[1]
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash_attention: unsupported dtype {q.dtype}")
+    kind = route(q.dtype)
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
     if K < 1 or H % K:
@@ -82,15 +101,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.flash_attention_launch(
+        rc = getattr(lib, _ENTRY[kind])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, K, S, hd, _DTYPES[q.dtype], int(bool(causal)),
-            max(int(window), 0), hd ** -0.5, float(softcap),
-            *launch_grid(B, H, S), stream,
+            B, H, K, S, hd, int(bool(causal)), max(int(window), 0),
+            hd ** -0.5, float(softcap), *launch_grid(B, H, S, kind), stream,
         )
     if rc != 0:
         raise _build.launch_error("flash_attention", rc,
                                   lib.flash_attention_error_string,
                                   "unsupported head dim")
     launches += 1
+    if kind == "wgmma":
+        launches_wgmma += 1
+    else:
+        launches_simt += 1
     return out

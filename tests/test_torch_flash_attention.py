@@ -11,9 +11,12 @@ Tolerance: 1e-5 absolute. Both sides compute the same f32 masked softmax;
 their sums run in different orders, which moves outputs of magnitude ~1 by
 a few 1e-7.
 
-The CUDA kernel itself cannot run here; ``chip_smoke.py`` holds it to the
-plain version on the card. What the CPU can check of it is tested below:
-the dispatch, the build recipe and the ctypes signature.
+The CUDA kernels themselves cannot run here; ``chip_smoke.py`` holds them
+to the plain version on the card. What the CPU can check of them is tested
+below: the dispatch, the route by dtype (bf16 to the wgmma kernel, f32 to
+the SIMT one), the build recipe and the ctypes signatures, and the wgmma
+kernel's algebra (tile-wise online softmax, P as two bf16 halves) in plain
+torch against both packages' attention_ref within the bf16 tolerance.
 """
 
 import ctypes
@@ -35,6 +38,7 @@ from repro_torch.kernels.flash_attention.ops import attention_op
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 ATOL = 1e-5
+ATTN_TOL_BF16 = 1.6e-2   # chip_smoke.py's ATTN_TOL for bf16: one ulp below 4
 
 
 def _inputs(B, H, K, S, hd, seed):
@@ -99,6 +103,97 @@ def test_attention_ref_keeps_bf16():
 
 
 # ---------------------------------------------------------------------------
+# the wgmma kernel's algebra, in plain torch
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+NEG_INF = -1e30
+
+
+def _wgmma_algebra(q, k, v, *, causal=True, window=0, softcap=0.0,
+                   bq=128, bk=128):
+    """The bf16 kernel's arithmetic (csrc/flash_attention_wgmma.cu) on the
+    host, tile by tile: blocks of ``bq`` query rows over the key tiles of
+    ``bk`` the masks leave partly visible; the scale folded into the
+    exponent (or scores scaled and capped first); masked scores -1e30 on a
+    partly visible tile and an exponent offset of +inf for a row that has
+    seen no key yet, so a masked p is 0 exactly; p split into bf16 halves
+    hi + lo for the P V product; l summing the f32 p; O / max(l, 1e-30)."""
+    B, H, S, hd = q.shape
+    group = H // k.shape[1]
+    scale = hd ** -0.5
+    sl = LOG2E if softcap > 0 else scale * LOG2E
+    out = torch.empty(q.shape, dtype=torch.float32)
+    pos = torch.arange(S)
+    for b in range(B):
+        for h in range(H):
+            qf = q[b, h].float()
+            kf, vf = k[b, h // group].float(), v[b, h // group].float()
+            for q0 in range(0, S, bq):
+                rows = pos[q0:q0 + bq]
+                q_last = min(q0 + bq, S) - 1
+                k_end = q_last + 1 if causal else S
+                k_begin = max(0, q0 - window + 1) if window > 0 else 0
+                m = torch.full((len(rows),), NEG_INF)
+                l = torch.zeros(len(rows))
+                acc = torch.zeros(len(rows), hd)
+                for k0 in range(k_begin // bk * bk, k_end, bk):
+                    keys = pos[k0:k0 + bk]
+                    s = qf[rows] @ kf[keys].T
+                    if softcap > 0:
+                        s = torch.tanh(s * (scale / softcap)) * softcap
+                    vis = torch.ones(s.shape, dtype=torch.bool)
+                    if causal:
+                        vis &= rows[:, None] >= keys[None, :]
+                    if window > 0:
+                        vis &= rows[:, None] - keys[None, :] < window
+                    s = torch.where(vis, s, NEG_INF)
+                    mn = torch.maximum(m, s.amax(-1))
+                    a = torch.exp2((m - mn) * sl)
+                    ms = torch.where(mn == NEG_INF, torch.inf, mn * sl)
+                    p = torch.exp2(s * sl - ms[:, None])
+                    hi = p.bfloat16().float()
+                    lo = (p - hi).bfloat16().float()
+                    acc = acc * a[:, None] + hi @ vf[keys] + lo @ vf[keys]
+                    l = l * a + p.sum(-1)
+                    m = mn
+                out[b, h, rows] = acc / l.clamp_min(1e-30)[:, None]
+    return out.bfloat16()
+
+
+# the small shapes of chip_smoke.py's ATTN_CASES (waste S 173, ragged,
+# bidirectional) in bf16, and a narrow tile that leaves windowed rows a
+# first tile with nothing visible
+ALGEBRA_CASES = [
+    (1, 8, 8, 173, 64, {}),
+    (2, 4, 2, 37, 32, {"window": 8, "softcap": 20.0}),
+    (1, 4, 2, 300, 128, {"causal": False}),
+    (1, 2, 1, 200, 112, {"window": 40, "bk": 16, "bq": 32}),
+    (1, 2, 2, 130, 256, {"softcap": 50.0, "bk": 64}),
+]
+
+
+@pytest.mark.parametrize("case", ALGEBRA_CASES,
+                         ids=lambda c: "B{}H{}K{}S{}hd{}".format(*c[:5])
+                         + "".join(f"-{k}{v}" for k, v in c[5].items()))
+def test_wgmma_algebra_matches_the_references(case):
+    """The kernel's tile-wise online softmax with P as bf16 halves, held to
+    the port's and the JAX package's attention_ref within ATTN_TOL[bf16]."""
+    B, H, K, S, hd, kw = case
+    tiles = {t: kw.pop(t) for t in ("bq", "bk") if t in kw}
+    xs = [torch.from_numpy(x).bfloat16()
+          for x in _inputs(B, H, K, S, hd, seed=7 * S + hd)]
+    got = _wgmma_algebra(*xs, **kw, **tiles)
+    want = attention_ref(*xs, **kw)
+    jax_want = np.asarray(attention_ref_j(
+        *(jnp.asarray(x.float().numpy()) for x in xs), **kw))
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=0, atol=ATTN_TOL_BF16)
+    np.testing.assert_allclose(got.float().numpy(), jax_want, rtol=0,
+                               atol=ATTN_TOL_BF16)
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
@@ -133,32 +228,79 @@ def test_unknown_backend_raises():
 # ---------------------------------------------------------------------------
 
 def test_kernel_build_recipe():
-    """The kernel builds from the package's own source for sm_90a without
-    fast math, and the wrapper accepts exactly the head dims the source
-    instantiates."""
+    """The kernels build from the package's own sources (the SIMT kernel for
+    f32, the wgmma kernel for bf16) for sm_90a without fast math, and the
+    wrapper accepts exactly the head dims both sources instantiate."""
     srcs = _build._sources("flash_attention")
-    assert [p.name for p in srcs] == ["flash_attention.cu"]
-    assert srcs[0].is_relative_to(Path(_build.__file__).parent)
+    assert [p.name for p in srcs] == ["flash_attention.cu",
+                                      "flash_attention_wgmma.cu"]
+    assert all(p.is_relative_to(Path(_build.__file__).parent) for p in srcs)
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags
     assert "fast_math" not in flags
-    text = srcs[0].read_text()
+    simt, wgmma = (p.read_text() for p in srcs)
     built = {int(m) for m in re.findall(r"case (\d+):\s*return launch<T,",
-                                        text)}
+                                        simt)}
     assert built == set(fa_t.HEAD_DIMS)
     assert _build._lib_path("flash_attention").parent == _build.BUILD_DIR
 
 
-def test_ctypes_signature_matches_the_c_entry_point():
-    """One ctypes type per parameter of ``flash_attention_launch``, in
-    order (ctypes would otherwise pass a pointer as a 32-bit int)."""
-    src = _build._sources("flash_attention")[0].read_text()
-    params = re.search(r"int flash_attention_launch\(([^)]*)\)",
-                       src).group(1)
+def test_wgmma_source_instantiates_the_head_dims():
+    """Each case of the wgmma entry point's switch launches its own head
+    dim, and the cases are HEAD_DIMS."""
+    src = _build._sources("flash_attention")[1].read_text()
+    cases = re.findall(r"case (\d+):\s*return launch<(\d+)>", src)
+    assert all(a == b for a, b in cases)
+    assert {int(a) for a, _ in cases} == set(fa_t.HEAD_DIMS)
+
+
+def test_wgmma_source_uses_the_tensor_cores_and_tma():
+    """Both products are wgmma (the score product with both operands in
+    shared memory, P V with P from registers and v transposed), the copies
+    TMA under mbarriers, and the registers go to the consumers."""
+    src = _build._sources("flash_attention")[1].read_text()
+    for ptx in ("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                "cp.async.bulk.tensor.3d", "mbarrier.try_wait.parity",
+                "mbarrier.arrive.expect_tx", "setmaxnreg.inc",
+                "setmaxnreg.dec", "const __grid_constant__ CUtensorMap"):
+        assert ptx in src, ptx
+    assert "}, %32, %33, p, 1, 1, 0, 0;" in src      # SS: K-major, K-major
+    assert "}, {%64, %65, %66, %67}, %68, 1, 1, 1, 1;" in src   # RS, tnspB
+
+
+def _entry_params(src: str, fn: str) -> list:
+    params = re.search(rf"int {fn}\(([^)]*)\)", src).group(1)
     kinds = []
     for decl in params.split(","):
         decl = decl.strip()
         kinds.append("p" if "*" in decl else decl.split()[0])
     want = {"p": ctypes.c_void_p, "int": ctypes.c_int,
             "float": ctypes.c_float}
-    assert [want[k] for k in kinds] == fa_t._ARGTYPES
+    return [want[k] for k in kinds]
+
+
+@pytest.mark.parametrize("src,fn", [
+    (0, "flash_attention_launch"), (1, "flash_attention_wgmma_launch"),
+], ids=["simt", "wgmma"])
+def test_ctypes_signature_matches_the_c_entry_point(src, fn):
+    """One ctypes type per parameter of each route's C entry point, in
+    order (ctypes would otherwise pass a pointer as a 32-bit int)."""
+    text = _build._sources("flash_attention")[src].read_text()
+    assert _entry_params(text, fn) == fa_t._ARGTYPES
+    assert fa_t._ENTRY[fa_t.ROUTES[{0: torch.float32,
+                                     1: torch.bfloat16}[src]]] == fn
+
+
+def test_route_follows_from_the_dtype_alone():
+    """bf16 takes the wgmma kernel, f32 the SIMT one; nothing else is
+    taken; each route's grid tiles by its own block of query rows."""
+    assert fa_t.route(torch.bfloat16) == "wgmma"
+    assert fa_t.route(torch.float32) == "simt"
+    for dt in (torch.float16, torch.float64, torch.int32):
+        with pytest.raises(ValueError, match="dtype"):
+            fa_t.route(dt)
+    assert fa_t.launch_grid(1, 8, 173, "wgmma") == (2, 8, 1)
+    assert fa_t.launch_grid(1, 8, 173, "simt") == (3, 8, 1)
+    import inspect
+    assert "route" not in inspect.signature(fa_t.flash_attention).parameters
+

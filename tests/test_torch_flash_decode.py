@@ -13,9 +13,11 @@ included, over several steps. Everything in f32.
 Tolerance: 2e-5 absolute on outputs of magnitude ~1, as the JAX package's
 own kernel tests use: the same f32 masked softmax, summed in other orders.
 
-The CUDA kernel cannot run here; ``chip_smoke.py`` holds it to the plain
-version on the card. Tested below of it: the dispatch, the build recipe,
-the ctypes signature and the shared-memory check.
+The CUDA kernels cannot run here; ``chip_smoke.py`` holds them to the plain
+version on the card. Tested below of them: the dispatch, the build recipe,
+the ctypes signatures, the shared-memory check, the chunk rule (from the
+shapes, never from pos), and the split-and-combine algebra in plain torch
+against the JAX package's oracle and Pallas kernel.
 """
 
 import ctypes
@@ -175,57 +177,170 @@ def _torch_inputs():
     return [torch.from_numpy(x) for x in _inputs(2, 4, 2, 37, 32, seed=5)]
 
 
+def _counts():
+    """The wrapper's counters: calls, split launches, combine launches."""
+    return fd_t.launches, fd_t.launches_split, fd_t.launches_combine
+
+
 def test_auto_and_ref_backends_take_the_plain_version_on_cpu():
     xs = _torch_inputs()
-    launches = fd_t.launches
+    launches = _counts()
     want = decode_attention_ref(*xs, window=8, softcap=20.0)
     for backend in ("auto", "ref"):
         got = decode_attention_op(*xs, window=8, softcap=20.0,
                                   backend=backend)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert fd_t.launches == launches
+    assert _counts() == launches
 
 
 def test_kernel_backend_raises_on_cpu_tensors():
     xs = _torch_inputs()
-    launches = fd_t.launches
+    launches = _counts()
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_op(*xs, backend="kernel")
     with pytest.raises(ValueError, match="CUDA"):
         fd_t.flash_decode(*xs)
     with pytest.raises(ValueError, match="backend"):
         decode_attention_op(*xs, backend="tpu")
-    assert fd_t.launches == launches
+    assert _counts() == launches
 
 
 def test_kernel_build_recipe():
-    """The kernel builds from the package's own source, and the wrapper
-    accepts exactly the head dims the source instantiates."""
+    """The kernels build from the package's own source, and the wrapper
+    accepts exactly the head dims and groups the source instantiates."""
     srcs = _build._sources("flash_decode")
     assert [p.name for p in srcs] == ["flash_decode.cu"]
     assert srcs[0].is_relative_to(Path(_build.__file__).parent)
     text = srcs[0].read_text()
-    built = {int(m) for m in re.findall(r"case (\d+):\s*return launch<T,",
-                                        text)}
+    built = {int(m) for m in re.findall(
+        r"case (\d+):\s*return launch_group<T, (?:\d+)>", text)}
     assert built == set(fd_t.HEAD_DIMS)
-    warps = int(re.search(r"constexpr int kWarps = (\d+);", text).group(1))
-    assert warps == fd_t._WARPS
-    # zamba2's group of 1 and qwen2.5's group of 8 fit; 32 queries of 256 do
-    # not
-    assert fd_t.smem_bytes(1, 112) < fd_t.SMEM_LIMIT
-    assert fd_t.smem_bytes(8, 128) < fd_t.SMEM_LIMIT
-    assert fd_t.smem_bytes(32, 256) > fd_t.SMEM_LIMIT
+    for name, value in (("kWarps", fd_t._WARPS),
+                        ("kMaxGroup", fd_t.MAX_GROUP)):
+        got = int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+        assert got == value, name
 
 
-def test_ctypes_signature_matches_the_c_entry_point():
-    """One ctypes type per parameter of ``flash_decode_launch``, in order
+@pytest.mark.parametrize("fn,argtypes", [
+    ("flash_decode_split_launch", fd_t._SPLIT_ARGTYPES),
+    ("flash_decode_combine_launch", fd_t._COMBINE_ARGTYPES),
+], ids=["split", "combine"])
+def test_ctypes_signature_matches_the_c_entry_point(fn, argtypes):
+    """One ctypes type per parameter of each C entry point, in order
     (ctypes would otherwise pass a pointer as a 32-bit int)."""
     src = _build._sources("flash_decode")[0].read_text()
-    params = re.search(r"int flash_decode_launch\(([^)]*)\)", src).group(1)
+    params = re.search(rf"int {fn}\(([^)]*)\)", src).group(1)
     kinds = []
     for decl in params.split(","):
         decl = decl.strip()
         kinds.append("p" if "*" in decl else decl.split()[0])
     want = {"p": ctypes.c_void_p, "int": ctypes.c_int,
             "float": ctypes.c_float}
-    assert [want[k] for k in kinds] == fd_t._ARGTYPES
+    assert [want[k] for k in kinds] == argtypes
+
+
+def test_n_split_follows_from_the_shapes_alone():
+    """The chunk, and so the split grid, is a function of (B, K, S), which
+    the host knows: zamba2's step takes 2048-key chunks (16 of them, 512
+    blocks of 4 kv heads), a small batch keeps 512-key chunks to fill the
+    card."""
+    import inspect
+    for fn in (fd_t.chunk_size, fd_t.n_split, fd_t.launch_grid):
+        assert list(inspect.signature(fn).parameters) == ["B", "K", "S"]
+    assert fd_t.chunk_size(4, 32, 32768) == 2048
+    assert fd_t.launch_grid(4, 32, 32768) == ((16, 8, 4), (32, 4))
+    assert fd_t.chunk_size(1, 2, 32768) == 512
+    assert fd_t.launch_grid(2, 2, 4097) == ((9, 1, 2), (2, 2))
+    assert fd_t.n_split(3, 2, 1) == 1
+    for B, K, S in ((4, 32, 32768), (1, 8, 32768), (2, 2, 4097)):
+        chunk = fd_t.chunk_size(B, K, S)
+        assert chunk in fd_t.CHUNKS and chunk % fd_t._WARPS == 0
+        assert (fd_t.n_split(B, K, S) - 1) * chunk < S <= (
+            fd_t.n_split(B, K, S) * chunk)
+
+
+def test_wrapper_never_waits_for_pos():
+    """The wrapper reads pos only as a pointer: no .item(), .cpu(), .max(),
+    .tolist() or int() of it, which would wait for the card each layer."""
+    import inspect
+    src = inspect.getsource(fd_t.flash_decode)
+    for call in ("pos.item", "pos.cpu", "pos.max", "pos.tolist", "int(pos",
+                 "pos.numpy"):
+        assert call not in src, call
+    assert "pos.data_ptr()" in src
+
+
+# ---------------------------------------------------------------------------
+# the split and combine passes' algebra, in plain torch
+# ---------------------------------------------------------------------------
+
+def _split_combine(q, k, v, pos, *, chunk, softcap=0.0, window=0):
+    """The kernels' arithmetic on the host: each chunk of ``chunk`` keys of
+    each (b, kv head) reduced to its partial (m, l, acc[G, hd]) over its
+    visible keys, an empty chunk to (-1e30, 0, 0); the partials merged in
+    chunk order with weights exp(m_c - max m); out = acc / max(l, 1e-30).
+    All in f32."""
+    B, H, hd = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    out = torch.empty(B, H, hd)
+    for b in range(B):
+        p = int(pos[b])
+        hi = min(p, S - 1)
+        lo = max(0, p - window + 1) if window > 0 else 0
+        for kh in range(K):
+            qg = q[b, kh * G:(kh + 1) * G].float()
+            parts = []
+            for c0 in range(0, S, chunk):
+                c_lo, c_hi = max(lo, c0), min(hi, c0 + chunk - 1)
+                if c_lo > c_hi:
+                    parts.append((torch.full((G,), NEG_INF), torch.zeros(G),
+                                  torch.zeros(G, hd)))
+                    continue
+                s = qg @ k[b, c_lo:c_hi + 1, kh].float().T * hd ** -0.5
+                if softcap > 0:
+                    s = torch.tanh(s / softcap) * softcap
+                m = s.amax(-1)
+                e = torch.exp(s - m[:, None])
+                parts.append((m, e.sum(-1),
+                              e @ v[b, c_lo:c_hi + 1, kh].float()))
+            m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+            l_sum, acc = torch.zeros(G), torch.zeros(G, hd)
+            for m, l, a in parts:
+                w = torch.exp(m - m_all)
+                l_sum = l_sum + w * l
+                acc = acc + w[:, None] * a
+            out[b, kh * G:(kh + 1) * G] = acc / l_sum.clamp_min(1e-30)[:, None]
+    return out
+
+
+NEG_INF = -1e30
+# (B, H, K, S, hd, chunk, options): chunks small enough that most of them
+# are empty or partly visible, pos 0 in every case's last row
+SPLIT_CASES = [
+    (3, 8, 2, 77, 64, 16, {}),
+    (2, 4, 4, 256, 112, 32, {"window": 40}),
+    (2, 8, 2, 300, 32, 64, {"window": 100, "softcap": 30.0}),
+    (3, 2, 1, 128, 128, 512, {"softcap": 20.0}),
+    (2, 4, 2, 1000, 64, None, {"window": 7}),   # the wrapper's own chunk
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: "B{}H{}K{}S{}hd{}chunk{}".format(*c[:6])
+                         + "".join(f"-{k}{v}" for k, v in c[6].items()))
+def test_split_combine_matches_the_references(case):
+    """The split-and-combine algebra, held to the port's plain version, the
+    JAX package's oracle and its Pallas kernel (interpret mode) within the
+    f32 tolerance of this file."""
+    B, H, K, S, hd, chunk, kw = case
+    xs = _inputs(B, H, K, S, hd, seed=S + hd + 1)
+    got = _split_combine(*map(torch.from_numpy, xs),
+                         chunk=chunk or fd_t.chunk_size(B, K, S), **kw)
+    np.testing.assert_allclose(got.numpy(), _port(*xs, **kw), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), _jax(ref_j, *xs, **kw), rtol=0,
+                               atol=ATOL)
+    if S % 64 == 0:
+        ker = _jax(fd_pallas, *xs, block_s=64, interpret=True, **kw)
+        np.testing.assert_allclose(got.numpy(), ker, rtol=0, atol=ATOL)

@@ -58,6 +58,22 @@ def test_registry_covers_every_kernel_package_with_cuda_sources():
     assert _kernel_packages() <= set(load_registry())
 
 
+def test_production_registry_declares_every_launch_of_the_redesign():
+    """The bf16 and f32 attention routes each have declared launches, and
+    decode declares both its passes at every case."""
+    report = check_all()
+    assert report["ok"]
+    reg = load_registry()
+    fa_cases = [g.case for g in reg["flash_attention"]()]
+    assert any(c.startswith("wgmma-") for c in fa_cases)
+    assert any(c.startswith("simt-") for c in fa_cases)
+    fd_cases = [g.case for g in reg["flash_decode"]()]
+    splits = {c[len("split-"):] for c in fd_cases if c.startswith("split-")}
+    combines = {c[len("combine-"):] for c in fd_cases
+                if c.startswith("combine-")}
+    assert splits and splits == combines
+
+
 def test_production_geometry_is_clean():
     report = check_all()
     assert report["ok"], report["violations"]
@@ -219,22 +235,27 @@ def test_same_violations_on_perturbed_reference_geometry():
 # declarations and launches
 # ---------------------------------------------------------------------------
 
-def _cu_constant(kernel, name):
-    src = _build._sources(kernel)[0].read_text()
+def _cu_constant(kernel, name, source=0):
+    src = _build._sources(kernel)[source].read_text()
     return int(re.search(rf"constexpr int {name} = (\d+)", src).group(1))
 
 
 def test_grid_helpers_tile_as_the_cuda_sources_do():
     assert placement_t.BLOCK_B == _cu_constant("placement", "kThreads")
-    assert fa_t.BLOCK_Q == _cu_constant("flash_attention", "kBQ")
+    assert fa_t.BLOCK_Q == {
+        "simt": _cu_constant("flash_attention", "kBQ", 0),
+        "wgmma": _cu_constant("flash_attention", "kBQ", 1)}
     assert ssm_t.BLOCK_D == _cu_constant("ssm_scan", "kThreads")
     assert wq_t.ROWS_PER_BLOCK == _cu_constant("window_query",
                                                "kRowsPerBlock")
     assert placement_t.launch_grid(37) == (1,)
     assert placement_t.launch_grid(8192) == (64,)
-    assert fa_t.launch_grid(2, 4, 37) == (1, 4, 2)
-    assert fa_t.launch_grid(1, 16, 4096) == (64, 16, 1)
-    assert fd_t.launch_grid(4, 32) == (32, 4)
+    assert fa_t.launch_grid(2, 4, 37, "simt") == (1, 4, 2)
+    assert fa_t.launch_grid(1, 16, 4096, "simt") == (64, 16, 1)
+    assert fa_t.launch_grid(2, 4, 37, "wgmma") == (1, 4, 2)
+    assert fa_t.launch_grid(1, 16, 4096, "wgmma") == (32, 16, 1)
+    assert fd_t.launch_grid(4, 32, 32768) == ((16, 8, 4), (32, 4))
+    assert fd_t.launch_grid(2, 2, 4097) == ((9, 1, 2), (2, 2))
     assert ssm_t.launch_grid(1, 8192) == (128, 1)
     assert ssm_t.launch_grid(2, 200) == (4, 2)
     assert ssd_t.launch_grid(1, 112) == (112, 1)
@@ -264,10 +285,21 @@ def test_ctypes_signatures_match_the_c_interface(kernel, fn, argtypes):
     assert [want[k] for k in kinds] == argtypes
 
 
+def _entry_body(kernel, fn):
+    """The body of C entry point ``fn``, in whichever of the kernel's
+    sources defines it."""
+    src = next(t for t in (p.read_text() for p in _build._sources(kernel))
+               if f"int {fn}(" in t)
+    body = src[src.index(f"int {fn}("):]
+    return body[:body.index("\n}\n")]
+
+
 @pytest.mark.parametrize("kernel,fn", [
     ("placement", "fused_place_launch"),
     ("flash_attention", "flash_attention_launch"),
-    ("flash_decode", "flash_decode_launch"),
+    ("flash_attention", "flash_attention_wgmma_launch"),
+    ("flash_decode", "flash_decode_split_launch"),
+    ("flash_decode", "flash_decode_combine_launch"),
     ("ssm_scan", "ssm_scan_launch"),
     ("ssd_scan", "ssd_scan_launch"),
     ("window_query", "window_query_batched_launch"),
@@ -275,9 +307,7 @@ def test_ctypes_signatures_match_the_c_interface(kernel, fn, argtypes):
     ("racy_sum", "racy_sum_launch"),
 ])
 def test_c_entry_points_check_the_wrappers_grid(kernel, fn):
-    src = _build._sources(kernel)[0].read_text()
-    body = src[src.index(f"int {fn}("):]
-    body = body[:body.index("\n}\n")]
+    body = _entry_body(kernel, fn)
     assert "int grid_x" in body and "return -2;" in body
 
 
