@@ -60,8 +60,11 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
 10. timing: each kernel's time per launch at its shapes (CUDA events) beside
    its bound, the plain version's time and, where one PyTorch call computes
    the same function, that call's time (a yardstick the port never calls),
-   with each attention and decode case's TFLOP/s or GB/s and share of its
-   bound, and ptxas's registers and spills of their kernels;
+   with each attention, decode and scan case's TFLOP/s or GB/s and share of
+   its bound (``ssm_scan``'s bound the largest of its bytes, f32
+   instructions and exps, all three on its timing row), and ptxas's
+   registers, spills and wgmma-serialization notes of the attention,
+   decode and scan kernels;
    the window-query kernels' and the racy fixture's device time a launch
    (the profiler's device events); and where each path's time goes
    (``torch.profiler``);
@@ -101,6 +104,12 @@ HP_QUERIES_PER_TICK = 4           # one window query a device
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12            # H100 SXM, non-tensor f32
 BF16_OPS_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
+#: f32 instructions a second: 67 TFLOP/s counts an FMA as two operations;
+#: an FMA, a multiply or an add is one instruction
+FP32_INSTR_PER_S = FP32_OPS_PER_S / 2
+SMS = 132                         # H100 SXM
+BOOST_CLOCK_HZ = 1.98e9           # H100 SXM, data sheet's maximum boost
+EX2_PER_CLOCK_SM = 16             # special-function unit results a clock
 SERVE_PERIODS = 40
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
 #: (name, B, H, K, S, hd, dtype, causal, window, softcap)
@@ -135,6 +144,7 @@ SSM_CASES = [
 SSD_CASES = [
     ("zamba2-7b", 1, 4096, 112, 64, 64, torch.bfloat16),
     ("ragged-small", 2, 77, 3, 64, 64, torch.float32),
+    ("ragged-small-bf16", 2, 77, 3, 64, 64, torch.bfloat16),
 ]
 #: (name, B, H, K, S, hd, dtype, window, softcap): decode attention; pos
 #: is near the end of the cache for zamba2, anywhere (0 included) else.
@@ -449,16 +459,34 @@ def decode_inputs(i, case, dev):
     return q, k, v, pos.to(torch.int32)
 
 
-def ssm_bound(case):
-    """(bound ms, bound_by, ops, bytes) of one selective scan: u, dt, B, C,
-    A read and y written once; 7 f32 operations a state element a step
-    (dt*A, exp, *h, du*B, +, *C, +) and dt*u, at the f32 rate (the
-    recurrence has no matrix product for the tensor cores)."""
+def ssm_terms(case) -> dict:
+    """The three floors of one selective scan, in ms: its bytes (u, dt, B,
+    C, A read and y written once) at the HBM rate; its f32 instructions (a
+    state element a step: dt*A, du*B, the fmaf into h and the fmaf into
+    y, as the kernel writes them -- and dt*u a channel step) at the CUDA
+    cores' instruction rate; and its exps (one ex2 a state element a step)
+    at EX2_PER_CLOCK_SM results a clock on each of SMS SMs at the boost
+    clock. ``binds`` names the largest."""
     _, B, S, di, N, dt = case
     e = 2 if dt == torch.bfloat16 else 4
     nbytes = 3 * B * S * di * e + 2 * B * S * N * e + di * N * 4
-    ops = B * S * di * (7 * N + 1)
-    return _bound(ops, FP32_OPS_PER_S, nbytes)
+    instructions = B * S * di * (4 * N + 1)
+    exps = B * S * di * N
+    terms = {
+        "bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+        "instructions_ms": 1e3 * instructions / FP32_INSTR_PER_S,
+        "exp_ms": 1e3 * exps / (EX2_PER_CLOCK_SM * SMS * BOOST_CLOCK_HZ)}
+    return {**terms, "binds": max(terms, key=terms.get)[:-3],
+            "bytes": nbytes, "instructions": instructions, "exps": exps}
+
+
+def ssm_bound(case):
+    """(bound ms, bound_by, ops, bytes) of one selective scan: the largest
+    of ``ssm_terms``; the instructions and exps are operations."""
+    t = ssm_terms(case)
+    bound_ms = max(t["bytes_ms"], t["instructions_ms"], t["exp_ms"])
+    return (bound_ms, "bytes" if t["binds"] == "bytes" else "operations",
+            t["instructions"] + t["exps"], t["bytes"])
 
 
 def ssd_bound(case):
@@ -808,10 +836,13 @@ def time_new_kernels(dev, errs, decode_pos):
             "plain_ms": time_ms(lambda: ref_fn(*xs), budget_ms=1.0),
             "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
             "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
+            "share_of_bound": bound_ms / ms,
             "library_ms": None,
             "library_none_because": "no single PyTorch call computes a "
                                     "selective or SSD scan",
             "max_abs_err": errs[kernel]}
+        if kernel == "ssm_scan":
+            rows[kernel]["bound_terms"] = ssm_terms(case)
         emit({"phase": "timing", "kernel": kernel, **rows[kernel]})
         del xs
     for i, case in enumerate(DECODE_CASES):
@@ -1184,10 +1215,13 @@ def main() -> None:
     # a library taken from an earlier build has no log to report
     ptxas = ptxas_report(logs, ("flash_attention_wgmma_kernel",
                                 "flash_decode_split_kernel",
-                                "flash_decode_combine_kernel"))
-    emit({"phase": "ptxas", "of": "the attention and decode kernels",
-          "from_cache": sorted({"flash_attention", "flash_decode"}
-                               - set(logs)),
+                                "flash_decode_combine_kernel",
+                                "ssm_scan_kernel", "ssd_scan_mma_kernel",
+                                "ssd_scan_simt_kernel"))
+    emit({"phase": "ptxas",
+          "of": "the attention, decode and scan kernels",
+          "from_cache": sorted({"flash_attention", "flash_decode",
+                                "ssm_scan", "ssd_scan"} - set(logs)),
           "kernels": ptxas})
     serialized = [r["kernel"] for r in ptxas if r["wgmma_serialized"]]
     check(not serialized, f"ptxas serialized the wgmmas of {serialized}")

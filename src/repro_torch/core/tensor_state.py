@@ -277,7 +277,7 @@ def _sanitize_unported(fn: str) -> None:
     if os.environ.get("REPRO_SANITIZE", "0") not in ("", "0"):
         raise NotImplementedError(
             f"{fn} with REPRO_SANITIZE set: the sanitizers are not ported "
-            f"yet (ROADMAP, modules of the port, item 6)")
+            f"yet (ROADMAP, queue 1 item 3: sanitizers)")
 
 
 def _f32(x, device) -> torch.Tensor:

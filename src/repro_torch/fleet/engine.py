@@ -40,7 +40,7 @@ import torch
 
 from repro_torch.core.tasks import FRAME_PERIOD, MAX_IMAGE_BYTES
 from repro_torch.core.tensor_state import (
-    BIG, SchedState, compact_state, fanout_commit,
+    BIG, SchedState, _sanitize_unported, compact_state, fanout_commit,
 )
 from repro_torch.fleet.metrics import init_stats
 from repro_torch.fleet.state import FleetState
@@ -391,7 +391,9 @@ def fleet_run(fleet: FleetState, values, bw_scale, *, params: FleetParams):
     broadcasts to it). Runs on the device of the fleet's tensors and
     returns ``(state, stats)``. The input ``fleet`` is left untouched: the
     engine runs on a copy, which the CUDA kernel then updates in place.
+    ``REPRO_SANITIZE=1`` raises: the per-tick checks are not ported yet.
     """
+    _sanitize_unported("fleet_run")
     p = params
     if p.mesh_shards >= 1:
         raise NotImplementedError(

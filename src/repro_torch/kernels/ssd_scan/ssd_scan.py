@@ -3,7 +3,8 @@
 Replaces the TPU kernel ``repro/kernels/ssd_scan/ssd_scan.py::ssd_scan``.
 One launch scans every (batch row, head) of a Mamba-2 block over the whole
 sequence in the chunked block form, at any S: the kernel masks its own
-ragged edge.
+ragged edge. A block takes ``BLOCK_P`` columns of the head dim (the
+P-split); bf16 runs on the tensor cores, f32 on the CUDA cores.
 
 The kernel is built with ``nvcc`` on first use (``kernels/_build.py``) and
 called through ``ctypes`` on PyTorch's current stream. It takes CUDA
@@ -26,13 +27,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]   # as in ssd_scan_launch
+_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]   # as in ssd_scan_launch
+
+BLOCK_P = 16   # columns of the head dim a block (kPB of the .cu)
 
 
-def launch_grid(B: int, H: int) -> tuple[int, int]:
-    """The CUDA grid of a launch: one block per (head, batch row), in
-    (x, y) order. ``geometry.py`` declares the same grid."""
-    return (H, B)
+def launch_grid(B: int, H: int, P: int) -> tuple[int, int, int]:
+    """The CUDA grid of a launch, both routes: one block per (``BLOCK_P``
+    columns of P, head, batch row), in (x, y, z) order. ``geometry.py``
+    declares the same grid."""
+    return (P // BLOCK_P, H, B)
 
 
 def _lib() -> ctypes.CDLL:
@@ -47,8 +51,8 @@ def _lib() -> ctypes.CDLL:
 
 def ssd_scan(x, dt, A, B, C):
     """x: [B,S,H,P]; dt: [B,S,H] f32; A: [H] f32; B, C: [B,S,N]; x, B and
-    C of one dtype (f32 or bf16), all contiguous on one CUDA device
-    -> y [B,S,H,P] in x's dtype."""
+    C of one dtype (f32 or bf16), all contiguous on one CUDA device, x, B
+    and C 16-byte aligned -> y [B,S,H,P] in x's dtype."""
     global launches
     if not isinstance(x, torch.Tensor) or not x.is_cuda:
         raise ValueError("ssd_scan runs on CUDA tensors only; use "
@@ -71,6 +75,8 @@ def ssd_scan(x, dt, A, B, C):
             ("A", A, torch.float32, (H,)), ("B", B, x.dtype, (Bsz, S, N)),
             ("C", C, x.dtype, (Bsz, S, N))):
         _build.check_tensor("ssd_scan", name, t, dtype, shape, dev)
+        if name in ("x", "B", "C") and t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan: {name} is not 16-byte aligned")
     y = torch.empty_like(x)
     lib = _lib()
     with torch.cuda.device(dev):
@@ -78,7 +84,7 @@ def ssd_scan(x, dt, A, B, C):
         rc = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), y.data_ptr(), Bsz, S, H, P, N, _DTYPES[x.dtype],
-            *launch_grid(Bsz, H), stream,
+            *launch_grid(Bsz, H, P), stream,
         )
     if rc != 0:
         raise _build.launch_error("ssd_scan", rc, lib.ssd_scan_error_string,

@@ -1,11 +1,12 @@
 """Launch geometry of the selective-scan kernel (``csrc/ssm_scan.cu``), for
 ``analysis/launch_check.py``.
 
-One block per (64 channels, batch row): grid ``launch_grid(B, di)`` in
-(x, y) order. A block reads its channels of u and dt over the whole
-sequence, their rows of A and the row's B and C, and writes its channels
-of y; the ragged last channel block is masked in the kernel. The sequence
-is a loop inside the block, not a grid axis.
+One block per (``BLOCK_D`` channels, batch row): grid
+``launch_grid(B, di)`` in (x, y) order, ``LANES`` threads a channel. A
+block reads its channels of u and dt over the whole sequence, their rows
+of A and the row's B and C, and writes its channels of y; the ragged last
+channel block is masked in the kernel. The sequence is a loop inside the
+block, not a grid axis.
 """
 
 from __future__ import annotations

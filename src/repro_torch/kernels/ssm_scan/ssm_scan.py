@@ -2,8 +2,9 @@
 
 Replaces the TPU kernel ``repro/kernels/ssm_scan/ssm_scan.py::ssm_scan``.
 One launch scans every (batch row, channel) of a Mamba-1 block over the
-whole sequence, at any S and any d_inner: the kernel masks its own ragged
-edges.
+whole sequence, at any S and at any d_inner whose rows are whole 16-byte
+vectors (a multiple of 8 in bf16, of 4 in f32): the kernel masks its own
+ragged edges. ``LANES`` lanes of a warp share a channel's state.
 
 The kernel is built with ``nvcc`` on first use (``kernels/_build.py``) and
 called through ``ctypes`` on PyTorch's current stream. It takes CUDA
@@ -28,14 +29,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 6 + [_I] * 7 + [_P]   # as in ssm_scan_launch
 
-
-BLOCK_D = 64   # channels a block, one a thread (kThreads of the .cu)
+THREADS = 128              # threads a block (kThreads of the .cu)
+LANES = 8                  # lanes a channel (kLanes of the .cu)
+BLOCK_D = THREADS // LANES   # channels a block
 
 
 def launch_grid(B: int, di: int) -> tuple[int, int]:
-    """The CUDA grid of a launch: one block per (64 channels, batch row),
-    in (x, y) order, the last channel block ragged. ``geometry.py``
-    declares the same grid."""
+    """The CUDA grid of a launch: one block per (``BLOCK_D`` channels,
+    batch row), in (x, y) order, the last channel block ragged.
+    ``geometry.py`` declares the same grid."""
     return (-(-di // BLOCK_D), B)
 
 
@@ -51,8 +53,8 @@ def _lib() -> ctypes.CDLL:
 
 def ssm_scan(u, dt, A, B, C):
     """u, dt: [B,S,di]; A: [di,N] f32; B, C: [B,S,N]; u, dt, B and C of one
-    dtype (f32 or bf16), contiguous, on one CUDA device -> y [B,S,di] in
-    u's dtype."""
+    dtype (f32 or bf16), contiguous and 16-byte aligned, on one CUDA device
+    -> y [B,S,di] in u's dtype."""
     global launches
     if not isinstance(u, torch.Tensor) or not u.is_cuda:
         raise ValueError("ssm_scan runs on CUDA tensors only; use "
@@ -67,12 +69,17 @@ def ssm_scan(u, dt, A, B, C):
         raise ValueError(f"ssm_scan: state dim {N} not in {STATE_DIMS}")
     if Bsz < 1 or S < 1 or di < 1:
         raise ValueError(f"ssm_scan: empty input {tuple(u.shape)}")
+    if (di * u.element_size()) % 16:
+        raise ValueError(f"ssm_scan: d_inner {di} is not a whole number of "
+                         f"16-byte vectors of {u.dtype}")
     dev = u.device
     for name, x, dtype, shape in (
             ("u", u, u.dtype, (Bsz, S, di)), ("dt", dt, u.dtype, (Bsz, S, di)),
             ("A", A, torch.float32, (di, N)), ("B", B, u.dtype, (Bsz, S, N)),
             ("C", C, u.dtype, (Bsz, S, N))):
         _build.check_tensor("ssm_scan", name, x, dtype, shape, dev)
+        if name != "A" and x.data_ptr() % 16:
+            raise ValueError(f"ssm_scan: {name} is not 16-byte aligned")
     y = torch.empty_like(u)
     lib = _lib()
     with torch.cuda.device(dev):

@@ -49,8 +49,8 @@ def serve(
         "scheduler": scheduler,
         "frames_submitted": fid,
         "completion_rate": round(eng.completion_rate(), 4),
-        "stage1_latency_s": eng.stage1.latency,
-        "stage3_latency_s": eng.stage3.latency,
+        "stage1_latency_s": round(eng.stage1.latency, 4),
+        "stage3_latency_s": round(eng.stage3.latency, 4),
         "offloaded_total": sum(r.offloaded for r in eng.results),
     }
 

@@ -245,7 +245,9 @@ def test_grid_helpers_tile_as_the_cuda_sources_do():
     assert fa_t.BLOCK_Q == {
         "simt": _cu_constant("flash_attention", "kBQ", 0),
         "wgmma": _cu_constant("flash_attention", "kBQ", 1)}
-    assert ssm_t.BLOCK_D == _cu_constant("ssm_scan", "kThreads")
+    assert ssm_t.THREADS == _cu_constant("ssm_scan", "kThreads")
+    assert ssm_t.LANES == _cu_constant("ssm_scan", "kLanes")
+    assert ssd_t.BLOCK_P == _cu_constant("ssd_scan", "kPB")
     assert wq_t.ROWS_PER_BLOCK == _cu_constant("window_query",
                                                "kRowsPerBlock")
     assert placement_t.launch_grid(37) == (1,)
@@ -256,9 +258,10 @@ def test_grid_helpers_tile_as_the_cuda_sources_do():
     assert fa_t.launch_grid(1, 16, 4096, "wgmma") == (32, 16, 1)
     assert fd_t.launch_grid(4, 32, 32768) == ((16, 8, 4), (32, 4))
     assert fd_t.launch_grid(2, 2, 4097) == ((9, 1, 2), (2, 2))
-    assert ssm_t.launch_grid(1, 8192) == (128, 1)
-    assert ssm_t.launch_grid(2, 200) == (4, 2)
-    assert ssd_t.launch_grid(1, 112) == (112, 1)
+    assert ssm_t.launch_grid(1, 8192) == (512, 1)
+    assert ssm_t.launch_grid(2, 200) == (13, 2)
+    assert ssd_t.launch_grid(1, 112, 64) == (4, 112, 1)
+    assert ssd_t.launch_grid(2, 3, 64) == (4, 3, 2)
     assert wq_t.launch_grid(300) == (38,)
 
 

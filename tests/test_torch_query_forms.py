@@ -250,5 +250,5 @@ def test_placements_leave_their_input_state(states):
 ])
 def test_sanitize_is_not_ported(states, monkeypatch, fn, args):
     monkeypatch.setenv("REPRO_SANITIZE", "1")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         fn(states[0][1], *args)
