@@ -13,7 +13,10 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    one ``nvcc`` each, all started together;
 3. kernel: every kernel against its plain PyTorch version on the card:
    ``fused_place`` on seeded random rows plus hand-built corner rows, at
-   B=8192 and at a ragged B=37 — every output must be bit-identical;
+   B=8192 and at a ragged B=37, on one replica, on a ragged last block
+   (B=1027), on a batch whose every row has do = false (which must
+   leave the windows as they were) and on 6 devices a replica — every
+   output must be bit-identical;
    ``flash_attention`` on seeded N(0,1) inputs at the waste pipeline's
    shapes (S 173 and 233, bf16 and f32), a qwen2.5-3b and a gemma2-2b local
    and global layer, a zamba2-7b layer (hd 112), a ragged small case and a
@@ -63,8 +66,11 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    with each attention, decode and scan case's TFLOP/s or GB/s and share of
    its bound (``ssm_scan``'s bound the largest of its bytes, f32
    instructions and exps, all three on its timing row), and ptxas's
-   registers, spills and wgmma-serialization notes of the attention,
-   decode and scan kernels;
+   registers, spills and wgmma-serialization notes of the placement,
+   attention, decode and scan kernels; ``fused_place``'s device time cold
+   (L2 flushed by a 64 MB write, the time held to the HBM bound) and warm
+   (windows in L2, as the fleet meets them), and a near-empty launch's
+   device time;
    the window-query kernels' and the racy fixture's device time a launch
    (the profiler's device events); and where each path's time goes
    (``torch.profiler``);
@@ -111,6 +117,7 @@ SMS = 132                         # H100 SXM
 BOOST_CLOCK_HZ = 1.98e9           # H100 SXM, data sheet's maximum boost
 EX2_PER_CLOCK_SM = 16             # special-function unit results a clock
 SERVE_PERIODS = 40
+L2_FLUSH_BYTES = 64 << 20         # written between cold launches (L2 50 MB)
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
 #: (name, B, H, K, S, hd, dtype, causal, window, softcap)
 ATTN_CASES = [
@@ -547,6 +554,129 @@ def library_decode(q, k, v, pos):
     mask = (idx[None, :] <= pos[:, None].long())[:, None, None, :]
     return lambda: F.scaled_dot_product_attention(q4, kt, vt,
                                                   attn_mask=mask)
+
+
+def fused_place_cases():
+    """(name, case) of the ``fused_place`` checks: the fleet's B and a
+    ragged one with the hand-built rows first, one replica, a ragged last
+    block of 3 warps, a batch whose every row has do = false, and 6
+    devices (the kernel built for a device count read at run time)."""
+    from repro_torch.kernels.placement import cases
+
+    adv = cases.with_adversarial_rows
+    off = adv(cases.random_case(8 * 128 + 3, seed=4))
+    off[7][:] = False
+    return [("fleet-8192", adv(cases.random_case(B_MAIN, seed=0))),
+            ("ragged-37", adv(cases.random_case(37, seed=1))),
+            ("one-replica", cases.random_case(1, seed=2, do_rate=1.0)),
+            ("ragged-1027", adv(cases.random_case(8 * 128 + 3, seed=3))),
+            ("all-do-false-1027", off),
+            ("six-devices-37", cases.random_case(37, seed=5, dev=6))]
+
+
+def to_card(case, dev):
+    """Fresh copies of a case's numpy arrays on ``dev``."""
+    return [torch.from_numpy(x.copy()).to(dev) for x in case]
+
+
+def check_fused_place(dev) -> float:
+    """Phase 3 for ``fused_place``: every output bit for bit against the
+    plain version at each of ``fused_place_cases``. Returns the largest
+    absolute difference (0)."""
+    from repro_torch.kernels.placement import placement
+    from repro_torch.kernels.placement.ref import fused_place_ref
+
+    err = 0.0
+    for name, case in fused_place_cases():
+        ref = fused_place_ref(*to_card(case, dev))
+        ker = placement.fused_place(*to_card(case, dev))
+        torch.cuda.synchronize()
+        same = [bit_equal(r, k) for r, k in zip(ref, ker)]
+        err = max(err, max_abs_err(ref, ker))
+        emit({"phase": "kernel", "kernel": "fused_place", "case": name,
+              "B": len(case[0]), "outputs_bit_identical": same,
+              "max_abs_err": err, "ok_rows": int(ref[3].sum()),
+              "dropped": int(ref[8].sum()),
+              "use4_rows": int((ref[3] & ref[7]).sum())})
+        check(all(same), f"fused_place differs from its plain version "
+                         f"in case {name}: {same}")
+        if name.startswith("all-do-false"):
+            kept = [bit_equal(k, x) for k, x in
+                    zip(ker[:3], to_card(case[:3], dev))]
+            check(not ker[3].any() and all(kept),
+                  f"fused_place committed a do = false row: {kept}")
+    return err
+
+
+def time_fused_place(dev, case=None) -> dict:
+    """Phase 10 for ``fused_place`` at the fleet's B (or on ``case``): its
+    device time a launch (the profiler's device events) cold, with a 64 MB
+    write between the reset of the windows and the launch that evicts them
+    from L2 (``ms``, the time held to the HBM bound), and warm, right after
+    a reset by a copy that leaves them in L2 as the fleet's consecutive
+    attempts do (``ms_warm``); the plain version's time; the bound; and one
+    near-empty launch's device time (a one-element ``fill_``), the floor
+    under any launch."""
+    from repro_torch.kernels.placement import placement
+    from repro_torch.kernels.placement.ref import fused_place_ref
+
+    if case is None:
+        case = fused_place_cases()[0][1]
+    pristine = to_card(case, dev)
+    work = [x.clone() for x in pristine]
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=dev)
+
+    def reset():
+        for w, p in zip(work[:3], pristine[:3]):
+            w.copy_(p)
+
+    def warm():
+        reset()
+        placement.fused_place(*work)
+
+    def cold():
+        reset()
+        flush.zero_()
+        placement.fused_place(*work)
+
+    cold_ms, cold_seen = device_ms(cold, "fused_place_kernel")
+    warm_ms, warm_seen = device_ms(warm, "fused_place_kernel")
+    one = torch.zeros(1, device=dev)
+    empty_ms, empty_seen = device_ms(lambda: one.fill_(1.0), "Fill")
+    del flush
+    fused_place_ref(*pristine)
+    plain_ms = cuda_ms(lambda: fused_place_ref(*pristine), 10)
+
+    ref = fused_place_ref(*pristine)
+    t1 = case[0]
+    n_ok = int(ref[3].sum())
+    B, n_dev, n_cfg, T, W = t1.shape
+    win = 4 + 4 + 1                              # t1, t2, valid per window
+    read = (B * 2 * n_dev * T * W * win          # lp2 + lp4 lists, queried
+            + n_ok * T * W * win                 # hp list of the winner
+            + B * (n_cfg * 4 + 2 * n_dev * 4 + 4 + 1))
+    written = n_ok * n_cfg * T * W * win + B * (1 + 4 + 4 + 4 + 1 + 4)
+    ops = B * 2 * n_dev * T * W * 5 + n_ok * n_cfg * T * W * 14
+    bound_bytes_ms = 1e3 * (read + written) / HBM_BYTES_PER_S
+    bound_ops_ms = 1e3 * ops / FP32_OPS_PER_S
+    bound_ms = max(bound_bytes_ms, bound_ops_ms)
+    row = {"ms": cold_ms, "ms_warm": warm_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                        else "operations"),
+           "library_ms": None}
+    emit({"phase": "timing", "kernel": "fused_place", "B": B, **row,
+          "device_events": {"cold": cold_seen, "warm": warm_seen},
+          "bytes": read + written, "ops": ops,
+          "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms,
+          "cold_share_of_bound": bound_ms / cold_ms,
+          "warm_share_of_bound": bound_ms / warm_ms,
+          "cold_gb_per_s": (read + written) / cold_ms / 1e6})
+    emit({"phase": "timing", "kernel": "empty_launch",
+          "what": "a one-element fill_, the device time of a near-empty "
+                  "launch", "ms": empty_ms, "device_events": empty_seen})
+    return row
 
 
 def check_new_kernels(dev):
@@ -1184,8 +1314,7 @@ def main() -> None:
     from repro_torch.fleet.metrics import FleetStats, stats_to_numpy, summarize
     from repro_torch.fleet.sweep import _build_population
     from repro_torch.kernels import _build
-    from repro_torch.kernels.placement import cases, placement
-    from repro_torch.kernels.placement.ref import fused_place_ref
+    from repro_torch.kernels.placement import placement
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -1213,37 +1342,26 @@ def main() -> None:
           "built": sorted(logs),
           "nvcc": {k: v.splitlines() for k, v in logs.items()}})
     # a library taken from an earlier build has no log to report
-    ptxas = ptxas_report(logs, ("flash_attention_wgmma_kernel",
+    ptxas = ptxas_report(logs, ("fused_place_kernel",
+                                "flash_attention_wgmma_kernel",
                                 "flash_decode_split_kernel",
                                 "flash_decode_combine_kernel",
                                 "ssm_scan_kernel", "ssd_scan_mma_kernel",
                                 "ssd_scan_simt_kernel"))
     emit({"phase": "ptxas",
-          "of": "the attention, decode and scan kernels",
-          "from_cache": sorted({"flash_attention", "flash_decode",
-                                "ssm_scan", "ssd_scan"} - set(logs)),
+          "of": "the placement, attention, decode and scan kernels",
+          "from_cache": sorted({"placement", "flash_attention",
+                                "flash_decode", "ssm_scan",
+                                "ssd_scan"} - set(logs)),
           "kernels": ptxas})
     serialized = [r["kernel"] for r in ptxas if r["wgmma_serialized"]]
     check(not serialized, f"ptxas serialized the wgmmas of {serialized}")
+    spilled = [r["kernel"] for r in ptxas if r["kernel"].startswith(
+        "fused_place") and (r.get("spill_stores") or r.get("spill_loads"))]
+    check(not spilled, f"ptxas spilled registers of {spilled}")
 
     # -- 3. kernel against its plain version ---------------------------------
-    def on_card(case):
-        return [torch.from_numpy(x.copy()).to(dev) for x in case]
-
-    kernel_err = 0.0
-    for b, seed in ((B_MAIN, 0), (37, 1)):
-        case = cases.with_adversarial_rows(cases.random_case(b, seed=seed))
-        ref = fused_place_ref(*on_card(case))
-        ker = placement.fused_place(*on_card(case))
-        torch.cuda.synchronize()
-        same = [bit_equal(r, k) for r, k in zip(ref, ker)]
-        kernel_err = max(kernel_err, max_abs_err(ref, ker))
-        emit({"phase": "kernel", "kernel": "fused_place", "B": b,
-              "outputs_bit_identical": same, "max_abs_err": kernel_err,
-              "ok_rows": int(ref[3].sum()), "dropped": int(ref[8].sum()),
-              "use4_rows": int((ref[3] & ref[7]).sum())})
-        check(all(same), f"fused_place differs from its plain version "
-                         f"at B={b}: {same}")
+    kernel_err = check_fused_place(dev)
 
     attn_err = {}
     for i, c in enumerate(ATTN_CASES):
@@ -1477,46 +1595,7 @@ def main() -> None:
     model_plain_paths(dev)
 
     # -- 10. timing -----------------------------------------------------------
-    case = cases.with_adversarial_rows(cases.random_case(B_MAIN, seed=0))
-    pristine = on_card(case)
-    work = [x.clone() for x in pristine]
-
-    def reset():
-        for w, p in zip(work[:3], pristine[:3]):
-            w.copy_(p)
-
-    def launch():
-        reset()
-        placement.fused_place(*work)
-
-    for fn in (reset, launch):
-        fn()
-    torch.cuda.synchronize()
-    times = {"copy": [], "both": []}
-    for _ in range(2):            # in turns: copy, both, both, copy
-        times["copy"].append(cuda_ms(reset, 50))
-        times["both"].append(cuda_ms(launch, 50))
-    kernel_ms = (sum(times["both"]) - sum(times["copy"])) / 2
-    fused_place_ref(*pristine)
-    plain_ms = cuda_ms(lambda: fused_place_ref(*pristine), 10)
-
-    ref = fused_place_ref(*pristine)
-    t1, t2, valid, md, q1, dl, src, do = case
-    n_ok = int(ref[3].sum())
-    B, n_dev, n_cfg, T, W = t1.shape
-    win = 4 + 4 + 1                              # t1, t2, valid per window
-    read = (B * 2 * n_dev * T * W * win          # lp2 + lp4 lists, queried
-            + n_ok * T * W * win                 # hp list of the winner
-            + B * (n_cfg * 4 + 2 * n_dev * 4 + 4 + 1))
-    written = n_ok * n_cfg * T * W * win + B * (1 + 4 + 4 + 4 + 1 + 4)
-    ops = B * 2 * n_dev * T * W * 5 + n_ok * n_cfg * T * W * 14
-    bound_bytes_ms = 1e3 * (read + written) / HBM_BYTES_PER_S
-    bound_ops_ms = 1e3 * ops / FP32_OPS_PER_S
-    emit({"phase": "timing", "kernel": "fused_place", "B": B,
-          "ms": kernel_ms, "copy_ms": times["copy"],
-          "copy_plus_kernel_ms": times["both"], "plain_ms": plain_ms,
-          "bytes": read + written, "ops": ops,
-          "bound_bytes_ms": bound_bytes_ms, "bound_ops_ms": bound_ops_ms})
+    place_row = time_fused_place(dev)
 
     attn_rows = []
     for i, c in enumerate(ATTN_CASES):
@@ -1543,8 +1622,12 @@ def main() -> None:
     # where the fleet path's time goes: 5 ticks under the profiler
     v5, bw5 = values[:5], bw[:5]
     fleet = make_fleet(B_MAIN, device=dev)
-    emit({**profile_device(lambda: fleet_run(fleet, v5, bw5, params=params),
-                           "fleet_run"), "ticks": 5})
+    prof = profile_device(lambda: fleet_run(fleet, v5, bw5, params=params),
+                          "fleet_run")
+    place_ms = [r["ms"] for r in prof["top_device_ops"]
+                if "fused_place_kernel" in r["name"]]
+    emit({**prof, "ticks": 5, "fused_place_device_ms_per_tick":
+          place_ms[0] / 5 if place_ms else None})
 
     # where a serving forward's time goes: one stage-3 forward
     model = Model(wcfg, seed=0, device=dev)
@@ -1606,12 +1689,8 @@ def main() -> None:
         "launches": launches,
         "matched": True,
         "max_abs_err": kernel_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-        "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
-                     else "operations"),
-        "library_ms": None,
+        "case": "fleet-8192",
+        **place_row,
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -4,7 +4,8 @@ hand-built rows that each drive one corner of the selection and commit.
 The same numpy arrays go to the JAX package and to this one in the tests,
 and to the CUDA kernel and its plain version in ``chip_smoke.py``. Every
 case is the tuple ``(t1, t2, valid, min_dur, q1, dl, src, do)`` of
-``fused_place`` with Dev=4, CFG=3 (hp, lp2, lp4), T=2, W=16.
+``fused_place`` with Dev=4 (another count for random rows if asked), CFG=3
+(hp, lp2, lp4), T=2, W=16.
 """
 
 from __future__ import annotations
@@ -26,13 +27,17 @@ ADVERSARIAL_ROWS = (
     "equal_overlap",       # two tracks overlap the commit equally, over
     #                        three windows on one of them; track 0 is cut
     "straddle_no_slot",    # a straddle's right piece finds no free slot
+    "overlap_sum_order",   # two tracks' overlaps tie when summed lane 0
+    #                        to 15 in order, not when summed as a tree
 )
 
 
-def random_case(b: int, seed: int = 0, do_rate: float = 0.8):
-    """``b`` random rows: windows sorted by start within each track."""
+def random_case(b: int, seed: int = 0, do_rate: float = 0.8,
+                dev: int = DEV):
+    """``b`` random rows of ``dev`` devices: windows sorted by start within
+    each track."""
     rng = np.random.default_rng(seed)
-    t1 = rng.uniform(0, 50, (b, DEV, CFG, T, W)).astype(np.float32)
+    t1 = rng.uniform(0, 50, (b, dev, CFG, T, W)).astype(np.float32)
     t2 = (t1 + rng.uniform(0.1, 30, t1.shape)).astype(np.float32)
     valid = rng.random(t1.shape) < 0.6
     order = np.argsort(np.where(valid, t1, 1e9), axis=-1)
@@ -40,9 +45,9 @@ def random_case(b: int, seed: int = 0, do_rate: float = 0.8):
     t2 = np.take_along_axis(t2, order, -1)
     valid = np.take_along_axis(valid, order, -1)
     md = rng.uniform(1, 8, (b, CFG)).astype(np.float32)
-    q1 = rng.uniform(0, 40, (b, DEV)).astype(np.float32)
+    q1 = rng.uniform(0, 40, (b, dev)).astype(np.float32)
     dl = (q1 + rng.uniform(5, 40, q1.shape)).astype(np.float32)
-    src = rng.integers(0, DEV, b).astype(np.int32)
+    src = rng.integers(0, dev, b).astype(np.int32)
     do = rng.random(b) < do_rate
     return t1, t2, valid, md, q1, dl, src, do
 
@@ -109,6 +114,20 @@ def adversarial_case():
         win(r, 0, c, 0, 0, 0.0, 200.0)
         for w in range(1, W):
             win(r, 0, c, 0, w, 300.0 + 10 * w, 305.0 + 10 * w)
+
+    r = ADVERSARIAL_ROWS.index("overlap_sum_order")
+    # lp2 lands on [0, 17.19924); the hp list's track 0 overlaps it in
+    # three windows whose f32 sum is 6.51 lane by lane, ((0 + x0) + x1) +
+    # x2, but 6.5099998 as a butterfly adds them, (x0 + x2) + x1; track 1
+    # overlaps it in one window of 6.51. In order the tracks tie and track
+    # 0 is cut; in a tree track 1 would win and be cut instead.
+    q1[r] = 0.0
+    for c in (LP2, LP4):
+        for t in range(T):
+            win(r, 0, c, t, 0, 0.0, 100.0)
+    for w, (a, b) in enumerate([(1.05, 4.96), (7.82, 9.63), (13.1, 13.89)]):
+        win(r, 0, HP, 0, w, a, b)
+    win(r, 0, HP, 1, 0, 0.0, 6.51)
     return t1, t2, valid, md, q1, dl, src, do
 
 

@@ -19,25 +19,60 @@
 // The commit is made IN PLACE on t1, t2 and valid, as the Pallas kernel does
 // through its input/output aliases. Rows with ok == false are not written.
 //
-// Design: one thread per replica, blocks of 128 threads, the ragged last
-// block masked. A replica's 384 windows (Dev=4 x CFG=3 x T=2 x W=16) are
-// read straight from global memory; one track (W windows) is held in
-// registers while it is trimmed. The overlap of a track is summed lane 0 to
-// lane W-1 in sequence, the order the plain version and XLA use: a
-// different order can flip a near-tie in the track ranking. There are no
-// multiplies; build with --fmad=false and without --use_fast_math anyway, so
-// that every f32 result is bit-identical to the plain version.
+// Design: one warp per replica, 8 warps (8 replicas) a block. A config list
+// of a device is T x W = 32 slots of 9 bytes (t1, t2, valid), contiguous,
+// and lane l = t*W + w owns slot (t, w) of every list, so a list is read as
+// one 128-byte line of t1, one of t2 and 32 bytes of valid.
+//   1-2. The lanes load their slot of the lp2 and lp4 lists of 4 devices at
+//        once (24 loads in flight), then each list's earliest start is a
+//        butterfly min (__shfl_xor_sync; a min is exact in any order), the
+//        8 lists' butterflies step by step so their shuffles overlap. The
+//        selection is then computed by every lane alike (warp-uniform), with
+//        the strict < that keeps the first device on ties.
+//   3.   A track's overlap must be summed lane w = 0 .. W-1 in sequence from
+//        0.0f, the order the plain version (tensor_state._seq_sum) and XLA
+//        use: a tree order can flip a near-tie in the track ranking and trim
+//        another track (the "overlap_sum_order" row of
+//        kernels/placement/cases.py). So each lane adds its track's W
+//        overlaps in order, read by __shfl_sync, the two tracks' chains side
+//        by side. Each lane trims its own window; first_free and first_both
+//        of a track are __ffs of a __ballot_sync masked to the track's W
+//        bits; the spill pair is read from lane first_both by a shuffle;
+//        n_dropped is a __popc of the dropped ballot. Lane 0 writes the
+//        per-replica outputs.
+// No shuffle sits under a branch: a warp past the last replica runs the last
+// one's numbers and stores nothing, and the commit is computed on every row
+// and stored only on ok rows, where a branch on ok would be warp-uniform but
+// not provably so to the compiler, which then guards every shuffle with a
+// divergence check and a slow path (twice the code, and no faster on the
+// card). The fleet's 4 devices are a template argument (kDev), so every
+// window address is the replica's base plus a constant; another device count
+// takes the same code with n_dev read at run time. At n_dev = 4 the run-time
+// kernel took 14.1 us warm and 18.2 us cold against 13.0-13.1 and 17.6 for
+// kDev = 4 (tools/time_fused_place.py, NVIDIA H100 80GB HBM3, 700 W), hence
+// the second instantiation. 4 blocks an SM hold the kernel to 64 registers
+// without spills.
+// There are no multiplies; the adds are __fadd_rn, and the build uses
+// --fmad=false and no --use_fast_math anyway, so that every f32 result is
+// bit-identical to the plain version.
 //
 // Bound: a launch reads at least the queried windows of every replica,
-// B x 2 configs x Dev x T x W windows of 9 bytes (t1, t2, valid), about
-// 19 MB at B=8192, and writes the committed device's 96 windows of each
-// placed replica. Its arithmetic is a few compares and adds per window and
-// does not bound it. On chip_smoke.py's B=8192 rows that is 27 MB, 8.1 us at
-// 3.35 TB/s, and the kernel takes 106 us (NVIDIA H100 80GB HBM3, 700 W):
-// replica-per-thread loads are strided 1.5 KB apart across a warp, so they
-// coalesce poorly, and 64 blocks leave half the SMs idle. Making it fast (a
-// warp per replica, lanes over the 32 (T, W) slots of a config list) is
-// later work.
+// B x 2 configs x Dev x T x W windows of 9 bytes, and the hp list of each
+// placed replica's device, and writes the committed device's 96 windows of
+// each placed replica. Its arithmetic is a few compares and adds a window
+// and does not bound it. On chip_smoke.py's B = 8192 rows that is 27 MB,
+// 8.06 us at 3.35 TB/s. The whole fleet's windows (8192 x 384 x 9 B, 28 MB)
+// fit the H100's 50 MB L2, so a launch that finds them there (as the fleet's
+// consecutive attempts do) may read them faster than HBM allows. The design
+// before this one ran a thread per replica in blocks of 128 and took
+// 107.5-108.2 us warm and 111.4 us cold there (device time, 168 registers;
+// tools/time_fused_place.py, NVIDIA H100 80GB HBM3, 700 W): neighbouring
+// threads read addresses 1.5 KB apart, so no load coalesced, and 64 blocks
+// left half of the 132 SMs idle. A warp per replica makes every load a whole
+// line and gives 1,024 blocks at B = 8192: 13.0-13.1 us warm and 17.6 us
+// cold (46% of the bound), 62 registers, no spills (same script and card).
+// What is left is latency: a warp's commit loads wait on its query's
+// selection.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,150 +80,183 @@
 namespace {
 
 constexpr int kCfg = 3;
-constexpr int kThreads = 128;
+constexpr int kWarps = 8;               // replicas a block, one a warp
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMinBlocks = 4;           // blocks an SM: at most 64 registers
+constexpr int kDevChunk = 4;            // devices whose lists load together
+constexpr unsigned kFull = 0xffffffffu;
 
-template <int T, int W>
-__global__ void __launch_bounds__(kThreads) fused_place_kernel(
+// kDev > 0 fixes the device count at compile time (the fleet's 4), so
+// every window address is the replica's base plus a constant; kDev == 0
+// reads it from n_dev_arg.
+template <int T, int W, int kDev>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) fused_place_kernel(
     float* __restrict__ t1, float* __restrict__ t2, uint8_t* __restrict__ valid,
     const float* __restrict__ min_dur, const float* __restrict__ q1,
     const float* __restrict__ dl, const int32_t* __restrict__ src,
     const uint8_t* __restrict__ do_mask, uint8_t* __restrict__ ok_out,
     int32_t* __restrict__ sel_out, float* __restrict__ start_out,
     float* __restrict__ dur_out, uint8_t* __restrict__ use4_out,
-    int32_t* __restrict__ drop_out, int n_rows, int n_dev, int cfg_pref,
+    int32_t* __restrict__ drop_out, int n_rows, int n_dev_arg, int cfg_pref,
     int cfg_fallback, int occ_bits, float big, float src_pref) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n_rows) return;
+  static_assert(T * W == 32, "one lane a (track, window) slot of a list");
   constexpr int TW = T * W;
-  const long long dev_stride = (long long)kCfg * TW;
-  const long long row = (long long)b * n_dev * dev_stride;
+  constexpr int kLists = 2 * kDevChunk;   // lp2 and lp4 lists of a chunk
+  const int n_dev = kDev > 0 ? kDev : n_dev_arg;
+  const int lane = threadIdx.x & 31;
+  // A warp past the last replica runs the last one's numbers and stores
+  // nothing: no lane leaves early, so every shuffle finds the warp whole.
+  const int b_warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool live = b_warp < n_rows;
+  const int b = live ? b_warp : n_rows - 1;
+  // this lane's slot in list 0 of device 0 of the replica
+  const size_t row = (size_t)b * n_dev * kCfg * TW + lane;
+  float* r1 = t1 + row;
+  float* r2 = t2 + row;
+  uint8_t* rv = valid + row;
+  const float* q1b = q1 + (size_t)b * n_dev;
+  const float* dlb = dl + (size_t)b * n_dev;
   const int my_src = src[b];
+  const int cfg_k[2] = {cfg_pref, cfg_fallback};
+  const float dur_k[2] = {min_dur[b * kCfg + cfg_pref],
+                          min_dur[b * kCfg + cfg_fallback]};
 
   // -- 1 + 2: query both configs on every device and select one ----------
-  bool ok_c[2];
-  int sel_c[2];
-  float start_c[2], dur_c[2];
+  float kmin[2] = {0.0f, 0.0f}, best_sel[2] = {0.0f, 0.0f};
+  bool found_sel[2] = {false, false};
+  int sel_k[2] = {0, 0};
+  for (int d0 = 0; d0 < n_dev; d0 += kDevChunk) {
+    // list i = j * 2 + k: device d0 + j (the last device stands in past
+    // n_dev), config cfg_k[k]; every load is issued before any reduction
+    float v[kLists];
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int ci = k == 0 ? cfg_pref : cfg_fallback;
-    const float dur = min_dur[b * kCfg + ci];
-    float kmin = 0.0f, best_sel = 0.0f;
-    bool found_sel = false;
-    int sel = 0;
-    for (int d = 0; d < n_dev; ++d) {
-      const long long base = row + d * dev_stride + ci * TW;
-      const float qd = q1[b * n_dev + d];
-      const float dd = dl[b * n_dev + d];
-      float best = big;
-#pragma unroll 8
-      for (int i = 0; i < TW; ++i) {
-        const float startw = fmaxf(t1[base + i], qd);
-        const bool feas =
-            valid[base + i] && (startw + dur <= fminf(t2[base + i], dd));
-        best = fminf(best, feas ? startw : big);
-      }
-      const bool found = best < big;
-      const float key = (found ? best : big) - (d == my_src ? src_pref : 0.0f);
-      if (d == 0 || key < kmin) {  // strict: the first device wins ties
-        kmin = key;
-        sel = d;
-        found_sel = found;
-        best_sel = best;
+    for (int j = 0; j < kDevChunk; ++j) {
+      const int d = min(d0 + j, n_dev - 1);
+      const float qd = q1b[d], dd = dlb[d];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int at = (d * kCfg + cfg_k[k]) * TW;
+        const float startw = fmaxf(r1[at], qd);
+        const bool feas = rv[at] != 0 &&
+                          __fadd_rn(startw, dur_k[k]) <= fminf(r2[at], dd);
+        v[j * 2 + k] = feas ? startw : big;
       }
     }
-    ok_c[k] = found_sel;
-    sel_c[k] = sel;
-    // the plain version sums a one-hot row (0 + best): same value, and the
-    // same +0 for a -0 start
-    start_c[k] = 0.0f + best_sel;
-    dur_c[k] = dur;
+    // the 8 butterfly mins, step by step, so their shuffles overlap
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int i = 0; i < kLists; ++i)
+        v[i] = fminf(v[i], __shfl_xor_sync(kFull, v[i], o));
+    }
+#pragma unroll
+    for (int j = 0; j < kDevChunk; ++j) {
+      const int d = d0 + j;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const float best = v[j * 2 + k];
+        const bool found = best < big;
+        const float key =
+            __fsub_rn(found ? best : big, d == my_src ? src_pref : 0.0f);
+        // strict: the first device wins ties
+        if (d < n_dev && (d == 0 || key < kmin[k])) {
+          kmin[k] = key;
+          sel_k[k] = d;
+          found_sel[k] = found;
+          best_sel[k] = best;
+        }
+      }
+    }
   }
-  const bool use4 = !ok_c[0] && ok_c[1];
-  const bool ok = (ok_c[0] || ok_c[1]) && do_mask[b] != 0;
-  const int sel = use4 ? sel_c[1] : sel_c[0];
-  const float start = use4 ? start_c[1] : start_c[0];
-  const float dur = use4 ? dur_c[1] : dur_c[0];
-  int n_drop = 0;
+  const bool use4 = !found_sel[0] && found_sel[1];
+  const bool ok = (found_sel[0] || found_sel[1]) && do_mask[b] != 0;
+  const int sel = use4 ? sel_k[1] : sel_k[0];
+  // the plain version sums a one-hot row (0 + best): same value, and the
+  // same +0 for a -0 start
+  const float start = __fadd_rn(0.0f, use4 ? best_sel[1] : best_sel[0]);
+  const float dur = use4 ? dur_k[1] : dur_k[0];
 
   // -- 3: fan-out commit of [s, e) on device `sel`, in place --------------
-  if (ok) {
-    const int cfg_commit = use4 ? cfg_fallback : cfg_pref;
-    const float s = start;
-    const float e = start + dur;
-    for (int li = 0; li < kCfg; ++li) {
-      const long long base = row + sel * dev_stride + li * TW;
-      float* lt1 = t1 + base;
-      float* lt2 = t2 + base;
-      uint8_t* lv = valid + base;
-      const float md = min_dur[b * kCfg + li];
-      // 3-bit fields, row-major over (task config, list config)
-      const int occ = (occ_bits >> (3 * (cfg_commit * kCfg + li))) & 7;
+  // Computed on every row, stored only on ok rows (so no shuffle sits
+  // under a branch).
+  const int cfg_commit = use4 ? cfg_fallback : cfg_pref;
+  const float s = start;
+  const float e = __fadd_rn(start, dur);
+  const int t = lane / W, w = lane % W;
+  const unsigned track_bits = ((1u << W) - 1u) << (t * W);
+  const bool store = live && ok;
+  float* c1 = r1 + sel * kCfg * TW;
+  float* c2 = r2 + sel * kCfg * TW;
+  uint8_t* cv = rv + sel * kCfg * TW;
+  float a1[kCfg], a2[kCfg];
+  bool av[kCfg];
+#pragma unroll
+  for (int li = 0; li < kCfg; ++li) {
+    a1[li] = c1[li * TW];
+    a2[li] = c2[li * TW];
+    av[li] = cv[li * TW] != 0;
+  }
+  int n_drop = 0;
+#pragma unroll
+  for (int li = 0; li < kCfg; ++li) {
+    const float md = min_dur[b * kCfg + li];
+    // 3-bit fields, row-major over (task config, list config)
+    const int occ = (occ_bits >> (3 * (cfg_commit * kCfg + li))) & 7;
+    const bool hit = av[li] && a1[li] < e && s < a2[li];
+    const float part =
+        hit ? __fsub_rn(fminf(a2[li], e), fmaxf(a1[li], s)) : 0.0f;
+    // overlap of this lane's track, summed lane 0..W-1 in order
+    float ol = 0.0f;
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      ol = __fadd_rn(ol, __shfl_sync(kFull, part, t * W + j));
+    // descending rank by overlap, the first track wins ties
+    int rank = 0;
+#pragma unroll
+    for (int u = 0; u < T; ++u) {
+      const float olu = __shfl_sync(kFull, ol, u * W);
+      rank += (olu > ol) || (olu == ol && u < t);
+    }
+    const bool active = rank < occ && ol > 0.0f;
 
-      // overlap of every track with [s, e), summed lane 0..W-1 in order
-      float ol[T];
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        float acc = 0.0f;
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          const float a1 = lt1[t * W + w], a2 = lt2[t * W + w];
-          const bool ov = lv[t * W + w] && a1 < e && s < a2;
-          acc = acc + (ov ? fminf(a2, e) - fmaxf(a1, s) : 0.0f);
-        }
-        ol[t] = acc;
-      }
+    const bool ov = hit && active;
+    const float left_t2 = fminf(a2[li], s);
+    const float right_t1 = fmaxf(a1[li], e);
+    const bool left_ok = ov && __fsub_rn(left_t2, a1[li]) >= md;
+    const bool right_ok = ov && __fsub_rn(a2[li], right_t1) >= md;
+    const bool both = left_ok && right_ok;
+    const bool nv = ov ? (left_ok || right_ok) : av[li];
+    const float nt1 =
+        nv ? ((ov && !left_ok && right_ok) ? right_t1 : a1[li]) : big;
+    const float nt2 = nv ? ((ov && left_ok) ? left_t2 : a2[li]) : big;
 
-#pragma unroll
-      for (int t = 0; t < T; ++t) {
-        // descending rank by overlap, the first track wins ties
-        int rank = 0;
-#pragma unroll
-        for (int j = 0; j < T; ++j)
-          rank += (ol[j] > ol[t]) || (ol[j] == ol[t] && j < t);
-        const bool active = rank < occ && ol[t] > 0.0f;
-
-        float nt1[W], nt2[W];
-        bool nv[W], both[W];
-        int first_free = W, first_both = W;
-        float sp_t1 = 0.0f, sp_t2 = 0.0f;
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          const float a1 = lt1[t * W + w], a2 = lt2[t * W + w];
-          const bool v = lv[t * W + w] != 0;
-          const bool ov = v && a1 < e && s < a2 && active;
-          const float left_t2 = fminf(a2, s);
-          const float right_t1 = fmaxf(a1, e);
-          const bool left_ok = ov && (left_t2 - a1 >= md);
-          const bool right_ok = ov && (a2 - right_t1 >= md);
-          both[w] = left_ok && right_ok;
-          nv[w] = ov ? (left_ok || right_ok) : v;
-          nt1[w] = nv[w] ? ((ov && !left_ok && right_ok) ? right_t1 : a1) : big;
-          nt2[w] = nv[w] ? ((ov && left_ok) ? left_t2 : a2) : big;
-          if (!nv[w] && first_free == W) first_free = w;
-          if (both[w] && first_both == W) {
-            first_both = w;
-            sp_t1 = 0.0f + right_t1;  // one-hot sum in the plain version
-            sp_t2 = 0.0f + a2;
-          }
-        }
-        const bool placed = first_both < W && first_free < W;
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          n_drop += both[w] && !(placed && w == first_both);
-          const bool place = placed && w == first_free;
-          lt1[t * W + w] = place ? sp_t1 : nt1[w];
-          lt2[t * W + w] = place ? sp_t2 : nt2[w];
-          lv[t * W + w] = (nv[w] || place) ? 1 : 0;
-        }
-      }
+    const unsigned free_bits = __ballot_sync(kFull, !nv) & track_bits;
+    const unsigned both_bits = __ballot_sync(kFull, both) & track_bits;
+    const int first_free = free_bits ? __ffs(free_bits) - 1 - t * W : W;
+    const int first_both = both_bits ? __ffs(both_bits) - 1 - t * W : W;
+    const bool placed = first_both < W && first_free < W;
+    // the straddle's right piece, from lane first_both (one-hot sums in
+    // the plain version)
+    const int from = t * W + (first_both < W ? first_both : 0);
+    const float sp_t1 = __fadd_rn(0.0f, __shfl_sync(kFull, right_t1, from));
+    const float sp_t2 = __fadd_rn(0.0f, __shfl_sync(kFull, a2[li], from));
+    const bool dropped = both && !(placed && w == first_both);
+    n_drop += __popc(__ballot_sync(kFull, dropped));
+    const bool place = placed && w == first_free;
+    if (store) {
+      c1[li * TW] = place ? sp_t1 : nt1;
+      c2[li * TW] = place ? sp_t2 : nt2;
+      cv[li * TW] = (nv || place) ? 1 : 0;
     }
   }
-  ok_out[b] = ok ? 1 : 0;
-  sel_out[b] = sel;
-  start_out[b] = start;
-  dur_out[b] = dur;
-  use4_out[b] = use4 ? 1 : 0;
-  drop_out[b] = n_drop;
+  if (live && lane == 0) {
+    ok_out[b] = ok ? 1 : 0;
+    sel_out[b] = sel;
+    start_out[b] = start;
+    dur_out[b] = dur;
+    use4_out[b] = use4 ? 1 : 0;
+    drop_out[b] = ok ? n_drop : 0;
+  }
 }
 
 template <int T, int W>
@@ -197,8 +265,10 @@ void launch(void* t1, void* t2, void* valid, const void* min_dur, const void* q1
             void* sel, void* start, void* dur, void* use4, void* n_drop,
             int n_rows, int n_dev, int cfg_pref, int cfg_fallback, int occ_bits,
             float big, float src_pref, cudaStream_t stream) {
-  const int blocks = (n_rows + kThreads - 1) / kThreads;
-  fused_place_kernel<T, W><<<blocks, kThreads, 0, stream>>>(
+  const int blocks = (n_rows + kWarps - 1) / kWarps;
+  auto kernel = n_dev == 4 ? fused_place_kernel<T, W, 4>
+                           : fused_place_kernel<T, W, 0>;
+  kernel<<<blocks, kThreads, 0, stream>>>(
       static_cast<float*>(t1), static_cast<float*>(t2),
       static_cast<uint8_t*>(valid), static_cast<const float*>(min_dur),
       static_cast<const float*>(q1), static_cast<const float*>(dl),
@@ -225,7 +295,7 @@ int fused_place_launch(void* t1, void* t2, void* valid, const void* min_dur,
                        int n_dev, int n_tracks, int n_windows, int cfg_pref,
                        int cfg_fallback, int occ_bits, float big,
                        float src_pref, int grid_x, void* stream) {
-  if (grid_x != (n_rows + kThreads - 1) / kThreads) return -2;
+  if (grid_x != (n_rows + kWarps - 1) / kWarps) return -2;
   if (n_rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FP_ARGS                                                             \

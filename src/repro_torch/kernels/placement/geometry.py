@@ -1,8 +1,8 @@
 """Launch geometry of the fused placement kernel (``csrc/placement.cu``),
 for ``analysis/launch_check.py``.
 
-One thread a replica, blocks of ``BLOCK_B`` replicas, a grid of
-``launch_grid(B)``; the ragged last block is masked in the kernel, so the
+One warp a replica, blocks of ``BLOCK_B`` replicas (one a warp), a grid
+of ``launch_grid(B)``; the ragged last block is masked in the kernel, so the
 replica dim of every tensor is a masked dim. The commit is in place: the
 window tensors t1, t2 and valid are both inputs and the first three
 outputs, declared as aliases sharing their buffers, and a block touches

@@ -34,7 +34,7 @@ _OCC_BITS = sum(
     int(v) << (3 * i) for i, v in enumerate(OCC_TABLE.reshape(-1))
 )
 _SHAPES_BUILT = {(2, 16)}   # (T, W) instantiated in the .cu
-BLOCK_B = 128               # replicas a block, one a thread (kThreads)
+BLOCK_B = 8                 # replicas a block, one a warp (kWarps)
 
 
 def launch_grid(B: int) -> tuple[int]:

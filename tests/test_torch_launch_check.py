@@ -241,7 +241,7 @@ def _cu_constant(kernel, name, source=0):
 
 
 def test_grid_helpers_tile_as_the_cuda_sources_do():
-    assert placement_t.BLOCK_B == _cu_constant("placement", "kThreads")
+    assert placement_t.BLOCK_B == _cu_constant("placement", "kWarps")
     assert fa_t.BLOCK_Q == {
         "simt": _cu_constant("flash_attention", "kBQ", 0),
         "wgmma": _cu_constant("flash_attention", "kBQ", 1)}
@@ -250,8 +250,8 @@ def test_grid_helpers_tile_as_the_cuda_sources_do():
     assert ssd_t.BLOCK_P == _cu_constant("ssd_scan", "kPB")
     assert wq_t.ROWS_PER_BLOCK == _cu_constant("window_query",
                                                "kRowsPerBlock")
-    assert placement_t.launch_grid(37) == (1,)
-    assert placement_t.launch_grid(8192) == (64,)
+    assert placement_t.launch_grid(37) == (5,)
+    assert placement_t.launch_grid(8192) == (1024,)
     assert fa_t.launch_grid(2, 4, 37, "simt") == (1, 4, 2)
     assert fa_t.launch_grid(1, 16, 4096, "simt") == (64, 16, 1)
     assert fa_t.launch_grid(2, 4, 37, "wgmma") == (1, 4, 2)

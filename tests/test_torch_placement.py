@@ -76,6 +76,7 @@ _EXPECT = {
     "lp4_fallback": (True, 3, True, 0),
     "equal_overlap": (True, 0, False, 0),
     "straddle_no_slot": (True, 0, False, 3),
+    "overlap_sum_order": (True, 0, False, 0),
 }
 
 
@@ -96,6 +97,17 @@ def test_adversarial_row_semantics(row):
         # kept both of its own
         assert not nv[i, 0, 0, 0].any()
         assert nv[i, 0, 0, 1, :2].all()
+    if row == "overlap_sum_order":
+        # track 0's overlaps tie track 1's summed in order, not as a tree;
+        # the tie goes to track 0, which lost its three windows
+        t1, t2, valid = (torch.from_numpy(x[i, 0, 0]) for x in case[:3])
+        s, e = start[i], start[i] + dur[i]
+        part = torch.where(valid & (t1 < e) & (s < t2),
+                           torch.minimum(t2, e) - torch.maximum(t1, s), 0.0)
+        x0, x1, x2 = part[0, :3]
+        assert (0.0 + x0 + x1) + x2 == part[1, 0] != (x0 + x2) + x1
+        assert not nv[i, 0, 0, 0].any()
+        assert nv[i, 0, 0, 1, 0] and not nv[i, 0, 0, 1, 1:].any()
 
 
 def test_ref_leaves_inputs_untouched():
