@@ -29,14 +29,17 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    bf16 ulp of the largest |y| (the 1.6e-2 of attention below 4);
    ``window_query`` and ``window_query_batched`` bit for bit at the
    reference query benchmark's 1024 devices, a ragged 300, 262,144
-   devices, B 8192 x Dev 4 (with ties on the ``<=``), the fleet's strided
-   HP view at B 8192 and a ragged B 3 x Dev 6; then the window-query path,
-   ``window_query_op`` on the 1024 devices, must launch the kernel once
-   and equal the plain version on the host;
+   devices, T 1 x W 15, B 8192 x Dev 4 (with ties on the ``<=``), the
+   fleet's strided HP view at B 8192, a ragged B 3 x Dev 6 and a B 2048 x
+   Dev 4 view offset by one element, each case on its route (the last two
+   named on the scalar route, the rest on the vector one); then the
+   window-query path, ``window_query_op`` on the 1024 devices, must launch
+   the kernel once and equal the plain version on the host;
 4. fleet path: ``run_sweep`` of 4 cells x 2048 seeds x 95 frames in one
    batch of 8192 replicas with ``FleetParams()`` defaults; a tick must
    launch the placement kernel 21 times and the window-query kernel 4 times
-   (the HP query of each device), and no LP task may be lost;
+   (the HP query of each device, every one on the vector route), and no LP
+   task may be lost;
 5. plain fleet path: the same batch through ``placement_backend="ref"``,
    which launches neither kernel, must give bit-identical counters and
    final state, and the same cell summaries;
@@ -67,13 +70,15 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    its bound (``ssm_scan``'s bound the largest of its bytes, f32
    instructions and exps, all three on its timing row), and ptxas's
    registers, spills and wgmma-serialization notes of the placement,
-   attention, decode and scan kernels; ``fused_place``'s device time cold
-   (L2 flushed by a 64 MB write, the time held to the HBM bound) and warm
-   (windows in L2, as the fleet meets them), and a near-empty launch's
-   device time;
-   the window-query kernels' and the racy fixture's device time a launch
-   (the profiler's device events); and where each path's time goes
-   (``torch.profiler``);
+   attention, decode, scan and window-query kernels; ``fused_place``'s
+   device time cold (L2 flushed by a 64 MB write, the time held to the HBM
+   bound) and warm (windows in L2, as the fleet meets them), and a
+   near-empty launch's device time;
+   the window-query kernels' device time a launch cold (L2 flushed) and
+   warm at every case, held to their byte bound, and the host's cost of
+   one call of the fleet's HP query, split into the wrapper's parts; the
+   racy fixture's device time a launch (the profiler's device events); and
+   where each path's time goes (``torch.profiler``);
 11. single controller: ``hp_place`` on each device and ``lp_place`` of 4
    tasks (lp2, lp4) from the same loaded scheduler on the card and on the
    host give the same outputs and state bit for bit; both timed;
@@ -313,7 +318,7 @@ def ptxas_report(logs: dict, kernels) -> list:
     "Potential Performance Loss" notes C7510-C7519)."""
     import re
 
-    args_re = re.compile(r"13__nv_bfloat16|f|Li(\d+)E")
+    args_re = re.compile(r"13__nv_bfloat16|f|Li(\d+)E|Lb([01])E")
     out = []
     for log in logs.values():
         serialized = set(re.findall(r"\(C751\d\)[^\n]*?'(\w+)'", log))
@@ -323,7 +328,8 @@ def ptxas_report(logs: dict, kernels) -> list:
             if base is None:
                 continue
             tmpl = fn[fn.index(base) + len(base) + 1:].split("EEv")[0] + "E"
-            args = [m.group(1) or {"f": "f32"}.get(m.group(0), "bf16")
+            args = [m.group(1) or {"f": "f32", "Lb0E": "false",
+                                   "Lb1E": "true"}.get(m.group(0), "bf16")
                     for m in args_re.finditer(tmpl)]
             row = {"kernel": f"{base}<{','.join(args)}>"}
             regs = re.search(r"Used (\d+) registers", body)
@@ -348,8 +354,10 @@ def busy_us(spans) -> float:
     return busy
 
 
-def profile_device(fn, label):
-    """Device busy share and the top device kernels of one call of ``fn``.
+def profile_device(fn, label, track=()):
+    """Device busy share and the top device kernels of one call of ``fn``,
+    and the device time and launches of each kernel whose name contains one
+    of ``track`` (``tracked``), wherever it ranks.
 
     Only the device's own events count (kernels, copies, memsets): a CPU
     op's self device time repeats the time of the kernels it launched, so
@@ -377,7 +385,10 @@ def profile_device(fn, label):
             "device_busy_share": device_us / 1e6 / wall if spans else None,
             "top_device_ops": [
                 {"name": k[:80], "ms": us / 1e3, "calls": n}
-                for us, k, n in rows[:10]]}
+                for us, k, n in rows[:10]],
+            "tracked": {t: {"ms": sum(us for us, k, _ in rows if t in k) / 1e3,
+                            "calls": sum(n for _, k, n in rows if t in k)}
+                        for t in track}}
 
 
 def bf16_ulp(x: float) -> float:
@@ -777,6 +788,8 @@ def counters() -> dict:
             "ssm_scan": (ssm, "launches"),
             "window_query": (wq, "launches"),
             "window_query_batched": (wq, "launches_batched"),
+            "window_query_vec": (wq, "launches_vec"),
+            "window_query_scalar": (wq, "launches_scalar"),
             "racy_sum": (racy_kernel, "launches")}
 
 
@@ -1065,13 +1078,17 @@ def random_windows(lead, T, W, seed, dev):
 
 
 def wq_cases(dev):
-    """(case, entry, inputs) of every window-query case, on the card."""
+    """(case, entry, route, inputs) of every window-query case, on ``dev``:
+    ``route`` is the kernel route the case must take."""
     bench = [torch.from_numpy(x).to(dev) for x in bench_query_lists()]
-    out = [("bench_query-1024dev", "window_query", (*bench, *BENCH_QUERY))]
-    for name, n, seed in (("ragged-300dev", 300, 1),
-                          ("large-262144dev", 262_144, 2)):
-        out.append((name, "window_query",
-                    (*random_windows((n,), 2, 16, seed, dev), *WQ_SCALARS)))
+    out = [("bench_query-1024dev", "window_query", "vec",
+            (*bench, *BENCH_QUERY))]
+    for name, n, T, W, seed, route in (
+            ("ragged-300dev", 300, 2, 16, 1, "vec"),
+            ("large-262144dev", 262_144, 2, 16, 2, "vec"),
+            ("t1xw15-4096dev", 4096, 1, 15, 7, "scalar")):
+        out.append((name, "window_query", route,
+                    (*random_windows((n,), T, W, seed, dev), *WQ_SCALARS)))
     g = torch.Generator().manual_seed(4)
 
     def rand(*shape, lo=0.0, span=1.0):
@@ -1086,7 +1103,7 @@ def wq_cases(dev):
     tie = rand(*t1.shape) < 0.2
     t2 = torch.where(tie, torch.maximum(t1, q1[..., None, None])
                      + dur[..., None, None], t2)
-    out.append(("batched-8192x4", "window_query_batched",
+    out.append(("batched-8192x4", "window_query_batched", "vec",
                 (t1, t2, valid | tie, q1, dl, dur)))
     # the fleet's HP query of device 1: [B,1,T,W] views of [B,4,3,2,16]
     # windows and a strided column of min_dur, read in place
@@ -1094,12 +1111,20 @@ def wq_cases(dev):
     now = rand(B_MAIN, span=100.0)
     min_dur = rand(B_MAIN, 3, lo=0.5, span=3.0)
     hp = slice(1, 2)
-    out.append(("fleet-hp-view-8192", "window_query_batched",
+    out.append(("fleet-hp-view-8192", "window_query_batched", "vec",
                 (w1[:, hp, 0], w2[:, hp, 0], wv[:, hp, 0], now[:, None],
                  (now + 3.0)[:, None], min_dur[:, :1])))
-    out.append(("ragged-3x6", "window_query_batched",
+    out.append(("ragged-3x6", "window_query_batched", "vec",
                 (*random_windows((3, 6), 2, 16, 6, dev),
                  *(torch.full((3, 6), v, device=dev) for v in WQ_SCALARS))))
+    # windows one element into their storage: no row starts 16-byte aligned
+    shape = (2048, 4, 2, 16)
+    flat = random_windows((math.prod(shape) + 1,), 1, 1, 8, dev)
+    q1 = rand(*shape[:2], span=60.0)
+    out.append(("offset-by-one-2048x4", "window_query_batched", "scalar",
+                (*(x.reshape(-1)[1:].view(shape) for x in flat), q1,
+                 q1 + rand(*shape[:2], lo=10.0, span=70.0),
+                 rand(*shape[:2], lo=1.0, span=29.0))))
     return out
 
 
@@ -1114,35 +1139,73 @@ def wq_bound(xs, batched: bool):
     return _bound(6 * rows * tw, FP32_OPS_PER_S, nbytes)
 
 
-def window_query_phase(dev):
-    """Phase 3 for the window-query kernels: each against its plain version,
-    bit for bit, at every case; then the window-query path through
-    ``window_query_op``. Returns each case's row by kernel name, and the
-    path's launches."""
+def wq_fns() -> dict:
+    """(kernel wrapper, plain version) of each window-query entry."""
     from repro_torch.kernels.window_query import window_query as wq
-    from repro_torch.kernels.window_query.ops import window_query_op
     from repro_torch.kernels.window_query.ref import (
         window_query_batched_ref, window_query_ref,
     )
 
-    fns = {"window_query": (wq.window_query, window_query_ref),
-           "window_query_batched": (wq.window_query_batched,
-                                    window_query_batched_ref)}
+    return {"window_query": (wq.window_query, window_query_ref),
+            "window_query_batched": (wq.window_query_batched,
+                                     window_query_batched_ref)}
+
+
+def time_wq_case(entry, xs, flush) -> dict:
+    """The timing row of one window-query case: the kernel's device time a
+    launch cold, after ``flush.zero_()`` (a 64 MB write that evicts L2),
+    and warm; the wrapper's and the plain version's time a call in a loop
+    of calls; the byte bound and the share of it cold and warm."""
+    ker_fn, ref_fn = wq_fns()[entry]
+    bound_ms, bound_by, ops, nbytes = wq_bound(xs, entry != "window_query")
+
+    def cold():
+        flush.zero_()
+        ker_fn(*xs)
+
+    cold_ms, cold_seen = device_ms(cold, "window_query_kernel")
+    warm_ms, warm_seen = device_ms(lambda: ker_fn(*xs), "window_query_kernel")
+    return {"ms": cold_ms, "ms_warm": warm_ms,
+            "device_events": {"cold": cold_seen, "warm": warm_seen},
+            "call_ms": time_ms(lambda: ker_fn(*xs)),
+            "plain_ms": time_ms(lambda: ref_fn(*xs)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
+            "bytes": nbytes, "share_of_bound": bound_ms / cold_ms,
+            "warm_share_of_bound": bound_ms / warm_ms,
+            "gb_per_s": nbytes / cold_ms / 1e6, "library_ms": None}
+
+
+def window_query_phase(dev):
+    """Phase 3 for the window-query kernels: each against its plain version,
+    bit for bit, at every case; then the window-query path through
+    ``window_query_op``. Returns each case's row by kernel name, and the
+    path's launch counts (in all and by route)."""
+    from repro_torch.kernels.window_query import window_query as wq
+    from repro_torch.kernels.window_query.ops import window_query_op
+    from repro_torch.kernels.window_query.ref import window_query_ref
+
+    fns = wq_fns()
     rows = {name: [] for name in fns}
-    for case, entry, xs in wq_cases(dev):
+    for case, entry, route, xs in wq_cases(dev):
         ker_fn, ref_fn = fns[entry]
+        reset_counts()
         ker = ker_fn(*xs)
         torch.cuda.synchronize()
+        n = counts()
         ref = ref_fn(*xs)
         same = [bit_equal(k, r) for k, r in zip(ker, ref)]
-        row = {"case": case, "shape": list(xs[0].shape),
+        routes = {r: n[f"window_query_{r}"] for r in wq.ROUTES}
+        row = {"case": case, "route": route, "shape": list(xs[0].shape),
                "strided": not xs[0].is_contiguous(),
-               "outputs_bit_identical": same,
+               "route_launches": routes, "outputs_bit_identical": same,
                "max_abs_err": max_abs_err(ref, ker),
                "found_rows": int(ref[0].sum()), "rows": ref[0].numel()}
         emit({"phase": "kernel", "kernel": entry, **row})
         check(all(same), f"{entry} differs from its plain version in case "
                          f"{case}: {same}")
+        want = {r: int(r == route) for r in wq.ROUTES}
+        check(routes == want, f"{entry} case {case} took the routes "
+                              f"{routes}, not {want}")
         rows[entry].append(row)
         del ker, ref
 
@@ -1159,56 +1222,139 @@ def window_query_phase(dev):
     emit({"phase": "window_query_path", "entry": "window_query_op",
           "devices": t1.shape[0], "windows": list(t1.shape[1:]),
           "query": BENCH_QUERY, "launches": n["window_query"],
+          "vec_launches": n["window_query_vec"],
           "found": int(found.sum()), "equal_to_host_plain_version": same})
-    check(n["window_query"] == 1, f"window_query_op launched the kernel "
-                                  f"{n['window_query']} times, not once")
+    check(n["window_query"] == 1 == n["window_query_vec"],
+          f"window_query_op launched the kernel {n['window_query']} times "
+          f"({n['window_query_vec']} on the vector route), not once")
     check(all(same), "the window-query path differs from the plain version "
                      "on the host")
-    return rows, n["window_query"]
+    return rows, {"all": n["window_query"],
+                  **{r: n[f"window_query_{r}"] for r in wq.ROUTES}}
 
 
 def time_window_query(dev, rows):
-    """Phase 10 for the window-query kernels, at every case: ``ms`` the
-    kernel's device time a launch, ``call_ms`` and ``plain_ms`` a call of
-    the wrapper and of the plain version in a loop of calls (CUDA events;
-    the host's cost a call bounds both at these sizes). It runs after the
-    main paths: once the profiler has run, every later launch costs the
-    host more. Returns each kernel's kernels-line row, at its main case."""
-    from repro_torch.kernels.window_query import window_query as wq
-    from repro_torch.kernels.window_query.ref import (
-        window_query_batched_ref, window_query_ref,
-    )
-
-    fns = {"window_query": (wq.window_query, window_query_ref),
-           "window_query_batched": (wq.window_query_batched,
-                                    window_query_batched_ref)}
+    """Phase 10 for the window-query kernels, at every case: the kernel's
+    device time a launch (the profiler's device events) cold, each launch
+    after a 64 MB write that evicts L2 (``ms``, the time held to the byte
+    bound), and warm, its inputs left in L2 by the launch before
+    (``ms_warm``: the fleet's HP view is in L2 after the tick's previous
+    ``fused_place``); ``call_ms`` and ``plain_ms`` a call of the wrapper and
+    of the plain version in a loop of calls (CUDA events; the host's cost a
+    call bounds both at these sizes); and the host's cost of the fleet's HP
+    query split into parts (``wq_host_split``). It runs after the main
+    paths: once the profiler has run, every later launch costs the host
+    more. Returns each kernel's kernels-line row, at its main case (whose
+    route is ``main_case_route``: ``route`` of the line is the kernel's
+    build route)."""
     done = {name: iter(r) for name, r in rows.items()}
-    for case, entry, xs in wq_cases(dev):
-        ker_fn, ref_fn = fns[entry]
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=dev)
+    for case, entry, route, xs in wq_cases(dev):
         row = next(done[entry])
-        bound_ms, bound_by, ops, nbytes = wq_bound(xs, entry != "window_query")
-        ms, seen = device_ms(lambda: ker_fn(*xs), "window_query_kernel")
-        row.update({"ms": ms, "device_events": seen, "call_ms": time_ms(lambda: ker_fn(*xs)),
-                    "plain_ms": time_ms(lambda: ref_fn(*xs)),
-                    "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
-                    "bytes": nbytes, "gb_per_s": nbytes / ms / 1e6,
-                    "library_ms": None})
+        row.update(time_wq_case(entry, xs, flush))
         emit({"phase": "timing", "kernel": entry, **row})
+        if case == "fleet-hp-view-8192":
+            emit({"phase": "host_split", "kernel": entry, "case": case,
+                  **wq_host_split(dev, xs)})
+    del flush
     main = {"window_query": "bench_query-1024dev",
             "window_query_batched": "fleet-hp-view-8192"}
+    keys = ("case", "route", "ms", "ms_warm", "call_ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     out = {}
     for name, cases in rows.items():
         top = next(c for c in cases if c["case"] == main[name])
         out[name] = {
-            **{k: top[k] for k in ("case", "ms", "call_ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")},
+            **{k: top[k] for k in keys if k != "route"},
+            "main_case_route": top["route"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "library_none_because": "no single PyTorch call computes the "
                                     "masked min-reduce and its found flag",
-            "cases": [{k: c[k] for k in ("case", "ms", "call_ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_ms")} for c in cases]}
+            "cases": [{k: c[k] for k in (*keys, "share_of_bound")}
+                      for c in cases]}
     return out
+
+
+def host_us(fns: dict, iters: int = 1000, repeats: int = 5) -> dict:
+    """Host microseconds a call of each of ``fns`` (by name): the least
+    mean over ``repeats`` loops of ``iters`` calls, the functions' loops
+    taken in turn so that each meets the same load (the host clock, no
+    synchronisation inside a loop: launches of a few µs of device time a
+    call never fill the queue; the least, since other work on a shared
+    host only adds to a loop)."""
+    best = dict.fromkeys(fns, math.inf)
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(repeats):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            best[name] = min(best[name], time.perf_counter() - t0)
+            torch.cuda.synchronize()
+    return {name: 1e6 * secs / iters for name, secs in best.items()}
+
+
+def wq_host_split(dev, xs) -> dict:
+    """The host's cost of one call of ``window_query_batched_op`` on the
+    fleet's HP view ``xs``, as ``fleet/engine.py::_hp_query`` passes it, in
+    µs a call, and of each part of it timed alone: the dispatcher's own
+    share (the op less the wrapper), the wrapper's window and parameter
+    checks, its two ``torch.empty``, the pointers and strides, the route,
+    the stream (with the check of the current device), and the ctypes call
+    (which launches the kernel); ``other`` is the wrapper less its parts."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.window_query import ops
+    from repro_torch.kernels.window_query import window_query as wq
+
+    t1, t2, valid, q1, dl, dur = xs
+    B, Dev, T, W = t1.shape
+    dev = t1.device               # the wrapper's device, with its index
+    kern = "window_query_batched"
+    lib = wq._lib()
+    params = [ops._param(x, (B, Dev), dev) for x in (q1, dl, dur)]
+    start = torch.empty((B, Dev), dtype=torch.float32, device=dev)
+    found = torch.empty((B, Dev), dtype=torch.int32, device=dev)
+    tensors = (t1, t2, valid, *params)
+
+    def window_checks():
+        wq._check_windows(kern, t1, t2, valid, 2)
+
+    def param_checks():
+        for name, x in zip(("q1", "deadline", "dur"), params):
+            _build.check_strided(kern, name, x, torch.float32, (B, Dev), dev,
+                                 inner=0)
+
+    def outputs():
+        torch.empty((B, Dev), dtype=torch.float32, device=dev)
+        torch.empty((B, Dev), dtype=torch.int32, device=dev)
+
+    def pointers_strides():
+        return ([x.data_ptr() for x in tensors],
+                [x.stride() for x in tensors])
+
+    ptrs, strides = pointers_strides()
+
+    def stream():
+        dev.index == torch.cuda.current_device()
+        return torch._C._cuda_getCurrentRawStream(dev.index)
+
+    args = (*ptrs, start.data_ptr(), found.data_ptr(), B, Dev, T * W,
+            *(s for st in strides for s in st[:2]), wq.BIG, 1,
+            *wq.launch_grid(B * Dev, T * W), stream())
+    parts = {"window_checks": window_checks, "param_checks": param_checks,
+             "outputs": outputs, "pointers_strides": pointers_strides,
+             "route": lambda: wq._route(t1.shape, ptrs, strides),
+             "stream": stream,
+             "ctypes_launch": lambda: lib.window_query_batched_launch(*args)}
+    us = host_us({"op": lambda: ops.window_query_batched_op(*xs),
+                  "wrapper": lambda: wq.window_query_batched(*tensors),
+                  **parts})
+    us["dispatcher"] = us["op"] - us["wrapper"]
+    us["other"] = us["wrapper"] - sum(us[k] for k in parts)
+    return {"us": us, "iters": 1000, "least_of_loops": 5}
 
 
 def single_controller_phase(dev):
@@ -1347,17 +1493,20 @@ def main() -> None:
                                 "flash_decode_split_kernel",
                                 "flash_decode_combine_kernel",
                                 "ssm_scan_kernel", "ssd_scan_mma_kernel",
-                                "ssd_scan_simt_kernel"))
+                                "ssd_scan_simt_kernel",
+                                "window_query_kernel"))
     emit({"phase": "ptxas",
-          "of": "the placement, attention, decode and scan kernels",
+          "of": "the placement, attention, decode, scan and window-query "
+                "kernels",
           "from_cache": sorted({"placement", "flash_attention",
-                                "flash_decode", "ssm_scan",
-                                "ssd_scan"} - set(logs)),
+                                "flash_decode", "ssm_scan", "ssd_scan",
+                                "window_query"} - set(logs)),
           "kernels": ptxas})
     serialized = [r["kernel"] for r in ptxas if r["wgmma_serialized"]]
     check(not serialized, f"ptxas serialized the wgmmas of {serialized}")
     spilled = [r["kernel"] for r in ptxas if r["kernel"].startswith(
-        "fused_place") and (r.get("spill_stores") or r.get("spill_loads"))]
+        ("fused_place", "window_query")) and (r.get("spill_stores")
+                                              or r.get("spill_loads"))]
     check(not spilled, f"ptxas spilled registers of {spilled}")
 
     # -- 3. kernel against its plain version ---------------------------------
@@ -1393,7 +1542,7 @@ def main() -> None:
         del q, k, v, ker, ref
     torch.cuda.empty_cache()
     new_err, decode_pos = check_new_kernels(dev)
-    wq_rows, wq_path_launches = window_query_phase(dev)
+    wq_rows, wq_path = window_query_phase(dev)
 
     # -- 4. the fleet path --------------------------------------------------
     sweep = SweepConfig(scenarios=("uniform", "weighted2"),
@@ -1413,6 +1562,7 @@ def main() -> None:
     fleet_counts = counts()
     launches = fleet_counts["fused_place"]
     hp_queries = fleet_counts["window_query_batched"]
+    hp_vec = fleet_counts["window_query_vec"]
     cells = summary["_sweep"]["cells"]
     residual = {c: summary[c]["conservation_residual"]["max_abs"]
                 for c in cells}
@@ -1423,6 +1573,7 @@ def main() -> None:
           "replica_frames_per_s": B_MAIN * N_FRAMES / wall,
           "fused_place_launches": launches,
           "window_query_batched_launches": hp_queries,
+          "window_query_vec_launches": hp_vec,
           "frame_completion_rate": {
               c: summary[c]["frame_completion_rate"] for c in cells},
           "conservation_residual_max_abs": residual})
@@ -1432,6 +1583,9 @@ def main() -> None:
     check(hp_queries == HP_QUERIES_PER_TICK * N_FRAMES,
           f"window_query_batched launched {hp_queries} times, not "
           f"{HP_QUERIES_PER_TICK * N_FRAMES}")
+    check(hp_vec == hp_queries and fleet_counts["window_query_scalar"] == 0,
+          f"{hp_queries - hp_vec} of the fleet's HP queries missed the "
+          f"vector route")
     check(all(v == 0 for v in residual.values()),
           f"LP tasks lost or double-counted: {residual}")
 
@@ -1467,7 +1621,8 @@ def main() -> None:
           "kernel_path_seconds": wall_k, "plain_path_seconds": wall_r})
     check(run_counts["ref"] == {} and run_counts["auto"] == {
         "fused_place": FUSED_PER_TICK * N_FRAMES,
-        "window_query_batched": HP_QUERIES_PER_TICK * N_FRAMES},
+        "window_query_batched": HP_QUERIES_PER_TICK * N_FRAMES,
+        "window_query_vec": HP_QUERIES_PER_TICK * N_FRAMES},
         f"fleet launches by backend: {run_counts}")
     check(not diff, f"kernel and plain main paths differ in {diff}")
     check(same_summary, "plain-path summaries differ from run_sweep's")
@@ -1623,11 +1778,15 @@ def main() -> None:
     v5, bw5 = values[:5], bw[:5]
     fleet = make_fleet(B_MAIN, device=dev)
     prof = profile_device(lambda: fleet_run(fleet, v5, bw5, params=params),
-                          "fleet_run")
+                          "fleet_run", track=("window_query_kernel",))
     place_ms = [r["ms"] for r in prof["top_device_ops"]
                 if "fused_place_kernel" in r["name"]]
     emit({**prof, "ticks": 5, "fused_place_device_ms_per_tick":
-          place_ms[0] / 5 if place_ms else None})
+          place_ms[0] / 5 if place_ms else None,
+          "window_query_device_ms_per_tick":
+              prof["tracked"]["window_query_kernel"]["ms"] / 5,
+          "window_query_launches": prof["tracked"]["window_query_kernel"][
+              "calls"]})
 
     # where a serving forward's time goes: one stage-3 forward
     model = Model(wcfg, seed=0, device=dev)
@@ -1673,12 +1832,13 @@ def main() -> None:
                 "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                 "library_ms": row["library_ms"]}
 
-    def wq_entry(name, total, per, replaces):
+    def wq_entry(name, total, per, by_route, replaces):
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/window_query/csrc/"
                           "window_query.cu",
                 "replaces": replaces, "launches": total,
-                "launches_by_path": per, "matched": True, **wq_rows[name]}
+                "launches_by_path": per, "launches_by_route": by_route,
+                "matched": True, **wq_rows[name]}
 
     attn_total, attn_per = path_launches("flash_attention")
     emit({"kernels": [{
@@ -1735,10 +1895,13 @@ def main() -> None:
                                for k in ("n_split", "chunk")}},
         wq_entry("window_query_batched", hp_queries,
                  {"fleet run_sweep": hp_queries},
+                 {"vec": hp_vec,
+                  "scalar": fleet_counts["window_query_scalar"]},
                  "src/repro/kernels/window_query/window_query.py:115"),
-        wq_entry("window_query", wq_path_launches,
+        wq_entry("window_query", wq_path["all"],
                  {"window_query_op, bench_query's 1024 devices":
-                  wq_path_launches},
+                  wq_path["all"]},
+                 {r: wq_path[r] for r in ("vec", "scalar")},
                  "src/repro/kernels/window_query/window_query.py:47"),
         {"name": "racy_sum", "route": "cuda",
          "source": "src/repro_torch/analysis/fixtures/csrc/racy_sum.cu",

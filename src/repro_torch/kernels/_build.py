@@ -62,19 +62,26 @@ def check_strided(kernel: str, name: str, x, dtype, shape, device, *,
     every element of which lies inside its storage: the kernel gets its
     pointer and its outer strides (torch strides are never negative)."""
     _check_meta(kernel, name, x, dtype, shape, device)
-    want = 1
-    for size, stride in zip(reversed(x.shape[x.dim() - inner:]),
-                            reversed(x.stride()[x.dim() - inner:])):
-        if size != 1 and stride != want:
-            raise ValueError(f"{kernel}: the last {inner} dims of {name} "
-                             f"must be contiguous, not strides {x.stride()}")
-        want *= size
-    if x.numel():
-        last = x.storage_offset() + sum(
-            (n - 1) * s for n, s in zip(x.shape, x.stride()))
-        if last >= x.untyped_storage().nbytes() // x.element_size():
-            raise ValueError(f"{kernel}: {name}'s strides reach past its "
-                             f"storage")
+    # one pass over the dims, innermost first: the contiguity of the last
+    # ``inner`` and the offset of the last element (a wrapper makes this
+    # check on every call, so it stays a plain loop)
+    sizes, strides = x.shape, x.stride()
+    dims = len(sizes)
+    want, last, empty = 1, x.storage_offset(), False
+    for i in range(dims - 1, -1, -1):
+        n, s = sizes[i], strides[i]
+        if i >= dims - inner:
+            if n != 1 and s != want:
+                raise ValueError(f"{kernel}: the last {inner} dims of "
+                                 f"{name} must be contiguous, not strides "
+                                 f"{strides}")
+            want *= n
+        last += (n - 1) * s
+        empty = empty or n == 0
+    if not empty and last >= (x.untyped_storage().nbytes()
+                              // x.element_size()):
+        raise ValueError(f"{kernel}: {name}'s strides reach past its "
+                         f"storage")
 
 
 def launch_error(kernel: str, rc: int, error_string,

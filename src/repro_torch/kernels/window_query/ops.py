@@ -56,7 +56,17 @@ def window_query_batched_op(t1, t2, valid, q1, deadline, dur, *,
     if _backend(backend, t1) == "ref":
         return window_query_batched_ref(t1, t2, valid, q1, deadline, dur)
     B, Dev = t1.shape[:2]
-    q1, deadline, dur = (
-        torch.as_tensor(x, dtype=torch.float32, device=t1.device)
-        .expand(B, Dev) for x in (q1, deadline, dur))
+    q1, deadline, dur = (_param(x, (B, Dev), t1.device)
+                         for x in (q1, deadline, dur))
     return window_query_batched(t1, t2, valid.bool(), q1, deadline, dur)
+
+
+def _param(x, shape, device):
+    """A query parameter as an f32 tensor of ``shape`` on ``device``: one
+    that is already that is passed as it is (the fleet's [B, 1] columns),
+    anything else broadcast to it."""
+    if (isinstance(x, torch.Tensor) and x.dtype == torch.float32
+            and x.device == device and x.shape == shape):
+        return x
+    return torch.as_tensor(x, dtype=torch.float32, device=device).expand(
+        shape)

@@ -248,8 +248,7 @@ def test_grid_helpers_tile_as_the_cuda_sources_do():
     assert ssm_t.THREADS == _cu_constant("ssm_scan", "kThreads")
     assert ssm_t.LANES == _cu_constant("ssm_scan", "kLanes")
     assert ssd_t.BLOCK_P == _cu_constant("ssd_scan", "kPB")
-    assert wq_t.ROWS_PER_BLOCK == _cu_constant("window_query",
-                                               "kRowsPerBlock")
+    assert wq_t.WARPS == _cu_constant("window_query", "kWarps")
     assert placement_t.launch_grid(37) == (5,)
     assert placement_t.launch_grid(8192) == (1024,)
     assert fa_t.launch_grid(2, 4, 37, "simt") == (1, 4, 2)
@@ -262,7 +261,38 @@ def test_grid_helpers_tile_as_the_cuda_sources_do():
     assert ssm_t.launch_grid(2, 200) == (13, 2)
     assert ssd_t.launch_grid(1, 112, 64) == (4, 112, 1)
     assert ssd_t.launch_grid(2, 3, 64) == (4, 3, 2)
-    assert wq_t.launch_grid(300) == (38,)
+    assert wq_t.launch_grid(300, 32) == (10,)       # 32 rows a block
+    assert wq_t.launch_grid(8192, 32) == (256,)     # the fleet's HP view
+    assert wq_t.launch_grid(1024, 128) == (128,)    # a warp a row
+    assert wq_t.launch_grid(4096, 15) == (64,)      # 64 rows a block
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` from the repository's root, as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_every_chip_smoke_window_query_case_is_declared_on_its_route():
+    """Each case ``chip_smoke.py`` launches the window-query kernels on (made
+    here on the host, from the same seeds) is a registered geometry of its
+    entry point, at its rows and T·W, and the wrapper's route helper sends
+    it down the route the run checks it took."""
+    declared = {(g.kernel, g.inputs[0].array_shape)
+                for g in load_registry()["window_query"]()}
+    seen = set()
+    for case, entry, route, xs in _chip_smoke().wq_cases("cpu"):
+        shape = (xs[0].shape[:-2].numel(),
+                 xs[0].shape[-2] * xs[0].shape[-1])
+        assert (entry, shape) in declared, case
+        assert wq_t.route(*xs[:3]) == route, case
+        seen.add(route)
+    assert seen == set(wq_t.ROUTES)
 
 
 @pytest.mark.parametrize("kernel,fn,argtypes", [

@@ -25,6 +25,8 @@ from repro.kernels.window_query.window_query import (
 from repro_torch.core.tensor_state import BIG as STATE_BIG
 from repro_torch.core.tensor_state import SchedState
 from repro_torch.fleet import engine as engine_t
+from repro_torch.kernels import _build
+from repro_torch.kernels.window_query import ops as ops_mod
 from repro_torch.kernels.window_query import window_query as wq_mod
 from repro_torch.kernels.window_query.ops import (
     window_query_batched_op, window_query_op,
@@ -228,10 +230,235 @@ def test_kernel_backend_raises_on_cpu_tensors(op, args):
 
 
 def test_launch_grid_covers_every_row():
-    for rows in (1, 7, 8, 9, 300, 8192 * 4, 262_144):
-        (blocks,) = wq_mod.launch_grid(rows)
-        assert (blocks - 1) * wq_mod.ROWS_PER_BLOCK < rows
-        assert blocks * wq_mod.ROWS_PER_BLOCK >= rows
+    """One block a tile of ``rows_per_block(T·W)`` rows, the last ragged:
+    ``WARPS`` warps of 32 / G rows, G lanes a row."""
+    groups = {1: 1, 4: 1, 8: 2, 15: 4, 32: 8, 48: 16, 128: 32, 192: 32}
+    for tw, group in groups.items():
+        assert wq_mod.group_size(tw) == group
+        tile = wq_mod.rows_per_block(tw)
+        assert tile == wq_mod.WARPS * (32 // group)
+        for rows in (1, 7, 8, 9, 300, 8192 * 4, 262_144):
+            (blocks,) = wq_mod.launch_grid(rows, tw)
+            assert (blocks - 1) * tile < rows <= blocks * tile
+
+
+def test_param_passes_a_ready_column_and_broadcasts_the_rest():
+    """The dispatcher hands an f32 [B, Dev] parameter on the windows' device
+    to the wrapper as it is (the fleet's [B, 1] columns) and broadcasts
+    anything else, as the JAX package's ``broadcast_to`` does."""
+    cpu = torch.device("cpu")
+    col = torch.rand(5, 1)
+    assert ops_mod._param(col, (5, 1), cpu) is col
+    x = ops_mod._param(3.5, (5, 4), cpu)
+    assert x.shape == (5, 4) and x.dtype == torch.float32
+    assert x.stride() == (0, 0) and (x == 3.5).all()
+    wide = torch.rand(5, 1, dtype=torch.float64)
+    y = ops_mod._param(wide, (5, 1), cpu)
+    assert y.dtype == torch.float32 and torch.equal(y, wide.float())
+    z = ops_mod._param(col[:, 0][:4], (5, 4), cpu)
+    assert z.shape == (5, 4) and torch.equal(z[3], col[:4, 0])
+
+
+# ---------------------------------------------------------------------------
+# the kernel's design: routes, tiling and lane groups
+# ---------------------------------------------------------------------------
+
+def _fleet_view():
+    """The fleet's HP view of device 1: [B, 1, T, W] slices of
+    [B, 4, 3, 2, 16] windows, as ``_hp_query`` passes them."""
+    t1 = torch.zeros(64, 4, 3, 2, 16)
+    valid = torch.zeros(t1.shape, dtype=torch.bool)
+    return t1[:, 1:2, 0], t1[:, 1:2, 0], valid[:, 1:2, 0]
+
+
+def _contiguous(*shape):
+    return (torch.empty(shape), torch.empty(shape),
+            torch.empty(shape, dtype=torch.bool))
+
+
+def _offset(shape, by=(1, 1, 1)):
+    """Windows ``by`` elements into flat buffers (per tensor)."""
+    n = int(np.prod(shape))
+    return tuple(torch.empty(n + k, dtype=dt)[k:].view(shape)
+                 for k, dt in zip(by, (torch.float32, torch.float32,
+                                       torch.bool)))
+
+
+def _row_stride(step):
+    """Rows ``step`` elements apart."""
+    return tuple(torch.empty(64 * step, dtype=dt).as_strided((64, 2, 16),
+                                                             (step, 16, 1))
+                 for dt in (torch.float32, torch.float32, torch.bool))
+
+
+@pytest.mark.parametrize("make,want", [
+    (_fleet_view, "vec"),
+    (lambda: _contiguous(262_144, 2, 16), "vec"),
+    (lambda: _contiguous(1024, 2, 64), "vec"),
+    (lambda: _contiguous(8, 4, 3, 16), "vec"),
+    (lambda: _offset((2048, 4, 2, 16)), "scalar"),
+    (lambda: _offset((64, 2, 16), by=(0, 0, 1)), "scalar"),
+    (lambda: _offset((64, 2, 16), by=(0, 4, 4)), "vec"),
+    (lambda: _contiguous(4096, 1, 15), "scalar"),
+    (lambda: _row_stride(33), "scalar"),
+    (lambda: _row_stride(34), "scalar"),
+    (lambda: _row_stride(36), "vec"),
+], ids=["fleet-hp-view", "262144x2x16", "1024x2x64", "8x4x3x16",
+        "offset-by-one", "valid-offset-by-one", "offset-by-16-bytes",
+        "w15", "odd-outer-stride", "outer-stride-2-mod-4",
+        "outer-stride-4-mod-4"])
+def test_route_helper(make, want):
+    """The vector route exactly where every row start of t1 and t2 is
+    16-byte aligned and of valid 4-byte aligned, and T·W % 4 == 0; CPU
+    tensors are 64-byte aligned, as CUDA ones are."""
+    assert wq_mod.route(*make()) == want
+
+
+def _kernel_model(t1, t2, valid, q1, dl, dur, route):
+    """The CUDA kernel over [rows, T·W] windows and [rows] parameters,
+    block by block and thread by thread: ``launch_grid``'s blocks of
+    ``WARPS`` warps, G = ``group_size(T·W)`` lanes a row, lane g of a group
+    over chunks g, g + G, ... of 4 windows (on the scalar route a window
+    past T·W loads as not valid), the chunk's min, then a butterfly of
+    xor-shuffles inside the group; lane 0 of a live group stores. Checks
+    that every row is stored exactly once and that the vector route never
+    reads past a row."""
+    rows, tw = t1.shape
+    G = wq_mod.group_size(tw)
+    rpw, n_chunks = 32 // G, -(-tw // 4)
+    step = wq_mod.WARPS * rpw
+    thread = torch.arange(wq_mod.WARPS * 32)
+    lane, warp = thread % 32, thread // 32
+    g = lane % G
+    big = torch.tensor(BIG, dtype=torch.float32)
+    start = torch.full((rows,), float("nan"))
+    found = torch.full((rows,), -1, dtype=torch.int32)
+    stores = torch.zeros(rows, dtype=torch.long)
+    (grid,) = wq_mod.launch_grid(rows, tw)
+    for blk in range(grid):
+        row = blk * step + warp * rpw + lane // G
+        live = row < rows
+        r = torch.where(live, row, rows - 1)[:, None]
+        best = torch.full((thread.numel(),), float("inf"))
+        for c0 in range(0, n_chunks, G):
+            c = c0 + g
+            load = live & (c < n_chunks)
+            idx = 4 * c[:, None] + torch.arange(4)
+            inside = idx < tw
+            if route == "vec":
+                assert inside[load].all()
+            idx = idx.clamp(max=tw - 1)
+            s = torch.maximum(t1[r, idx], q1[r])
+            ok = (valid[r, idx] & inside
+                  & (s + dur[r] <= torch.minimum(t2[r, idx], dl[r])))
+            chunk = torch.where(ok, s, big).amin(1)
+            best = torch.where(load, torch.minimum(best, chunk), best)
+        off = G // 2
+        while off:
+            best = torch.minimum(best, best.view(-1, 32)[
+                :, torch.arange(32) ^ off].reshape(-1))
+            off //= 2
+        store = live & (g == 0)
+        start[row[store]] = best[store]
+        found[row[store]] = (best[store] < big).to(torch.int32)
+        stores.index_add_(0, row[store], torch.ones_like(row[store]))
+    assert (stores == 1).all()
+    return found, start
+
+
+#: (rows, T, W, route): the fleet's list, T 1 x W 15, spare lanes (T 3 x
+#: W 16: 12 chunks on 16 lanes), two chunks a lane (T 3 x W 64), a lane a
+#: row (T 1 x W 1 and W 4), bench_query's T 2 x W 64 and a ragged tile
+DESIGN = [(300, 2, 16, "vec"), (77, 1, 15, "scalar"), (41, 3, 16, "vec"),
+          (21, 3, 64, "vec"), (300, 1, 1, "scalar"), (70, 1, 4, "vec"),
+          (130, 2, 64, "vec"), (18, 2, 16, "scalar")]
+
+
+@pytest.mark.parametrize("rows,T,W,route", DESIGN)
+def test_kernel_model_matches_the_plain_version(rows, T, W, route):
+    """The kernel's tiling, lane groups and routes, modelled lane by lane,
+    give the plain version's (and the JAX oracle's) answer bit for bit, ties
+    on the ``<=`` included."""
+    rng = np.random.default_rng(rows * 100 + T * 10 + W)
+    t1, t2, valid = _windows(rng, (rows,), T, W)
+    q1 = rng.uniform(0, 60, rows).astype(np.float32)
+    dl = q1 + rng.uniform(10, 80, rows).astype(np.float32)
+    dur = rng.uniform(1, 30, rows).astype(np.float32)
+    t2, _ = _tie(t1, t2, valid, rng, q1[:, None, None], dur[:, None, None])
+    flat = [x.reshape(rows, -1) for x in _t(t1, t2, valid)]
+    got = _kernel_model(*flat, *_t(q1, dl, dur), route)
+    want = window_query_batched_ref(*_t(t1[:, None], t2[:, None],
+                                        valid[:, None], q1[:, None],
+                                        dl[:, None], dur[:, None]))
+    _assert_bits([got[0][:, None], got[1][:, None]], want)
+    jx = [jnp.asarray(x) for x in (t1[:, None], t2[:, None], valid[:, None],
+                                   q1[:, None], dl[:, None], dur[:, None])]
+    _assert_bits(want, wqb_j(*jx))
+    assert 0 < int(got[0].sum()) <= rows
+
+
+# ---------------------------------------------------------------------------
+# the wrapper's argument check (``_build.check_strided``)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_device_check(monkeypatch):
+    """``check_strided`` with its device, dtype and shape check stubbed, so
+    that its stride and storage checks run on the host."""
+    monkeypatch.setattr(_build, "_check_meta", lambda *args: None)
+
+
+class _Fake:
+    """A tensor's metadata whose strides reach past its storage, which no
+    torch view can be: ``as_strided`` refuses one."""
+
+    def __init__(self, shape, strides, offset, storage_elems):
+        self.shape, self._strides = torch.Size(shape), strides
+        self._offset, self._bytes = offset, 4 * storage_elems
+
+    def stride(self):
+        return self._strides
+
+    def storage_offset(self):
+        return self._offset
+
+    def element_size(self):
+        return 4
+
+    def untyped_storage(self):
+        return type("S", (), {"nbytes": lambda _: self._bytes})()
+
+
+@pytest.mark.parametrize("make,inner", [
+    (lambda: torch.zeros(6, 4, 3, 2, 16), 2),
+    (lambda: torch.zeros(6, 4, 3, 2, 16)[:, 1:2, 0], 2),
+    (lambda: torch.zeros(6, 4, 3, 2, 16)[2:5, :, 2], 2),
+    (lambda: torch.zeros(0, 2, 16), 2),
+    (lambda: torch.zeros(5, 3)[:, :1], 0),
+    (lambda: torch.tensor(2.0).expand(5, 1), 0),
+    (lambda: torch.zeros(5, 1, 2, 16).transpose(0, 1), 2),
+], ids=["contiguous", "fleet-hp-view", "strided-rows", "empty",
+        "column", "broadcast", "size-1-dim"])
+def test_check_strided_takes_views_inside_their_storage(no_device_check,
+                                                        make, inner):
+    x = make()
+    _build.check_strided("k", "x", x, x.dtype, tuple(x.shape), x.device,
+                         inner=inner)
+
+
+@pytest.mark.parametrize("make,inner,match", [
+    (lambda: torch.zeros(4, 16, 2).transpose(1, 2), 2, "contiguous"),
+    (lambda: torch.zeros(4, 2, 32)[..., :16], 2, "contiguous"),
+    (lambda: _Fake((4, 2, 16), (32, 16, 1), 0, 127), 2, "storage"),
+    (lambda: _Fake((4, 2, 16), (32, 16, 1), 1, 128), 2, "storage"),
+    (lambda: _Fake((5, 1), (3, 1), 3, 15), 0, "storage"),
+], ids=["inner-transposed", "inner-cut", "last-element-past",
+        "offset-past", "column-past"])
+def test_check_strided_refuses(no_device_check, make, inner, match):
+    x = make()
+    with pytest.raises(ValueError, match=match):
+        _build.check_strided("k", "x", x, None, tuple(x.shape), None,
+                             inner=inner)
 
 
 # ---------------------------------------------------------------------------
