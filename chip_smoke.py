@@ -86,7 +86,21 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    write the same outputs: each output must be one of the two writers'
    values and the whole must differ from a correct reduction; the checker
    must flag its declared launch as a write race and find the production
-   registry clean.
+   registry clean;
+13. calibration: the serial DES (``run_experiment``, host Python) gives
+   RAS, WPS and HYB frame-completion rates on weighted2 and weighted4 at
+   congestion 0 and 0.3 (each run timed); then the committed grid of
+   ``results/calib/baseline.json`` (5 paper traces x congestion 0 and 0.3
+   x 3 seeds x 95 frames) through ``run_calibration`` on the card: every
+   point launches the placement kernel 21 times and the window-query
+   kernel 4 times a tick, the report must pass the committed bands and
+   equal, key by key, the plain path's (``placement_backend="ref"``,
+   which launches neither); each fleet point timed alone, one profiled;
+14. sanitize: the fleet path's 8192 replicas for 10 ticks with
+   ``REPRO_SANITIZE`` off, on, on, off must be bit-identical with the same
+   launches (ms a tick each); one calibration point under the flag must
+   pass the committed bands; a fleet with one corrupted window must raise
+   ``SanitizeError`` naming the window order, and the run goes on.
 
 Every phase line carries ``elapsed_s``, the seconds since the start. Then
 one ``{"kernels": [...]}`` line, and as the last line
@@ -100,6 +114,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -172,6 +187,10 @@ DECODE_STEPS = 8
 HYBRID_DECODE = (4, 32768)        # batch, cache length
 SSM_DECODE_BATCH = 128
 MODEL_TOL = 2e-2                  # kernel vs plain logits, of max |logit|
+BASELINE = ROOT / "results" / "calib" / "baseline.json"
+SERIAL_SCHEDULERS = ("ras", "wps", "hyb")
+SERIAL_TRACES = ("weighted2", "weighted4")
+SANITIZE_FRAMES = 10              # ticks of the sanitized B_MAIN fleet
 
 
 T_START = time.perf_counter()
@@ -801,6 +820,10 @@ def reset_counts():
 def counts() -> dict:
     return {name: getattr(mod, attr)
             for name, (mod, attr) in counters().items()}
+
+
+def nonzero_counts() -> dict:
+    return {k: v for k, v in counts().items() if v}
 
 
 def timed(fn):
@@ -1449,6 +1472,262 @@ def fixture_phase(dev):
     return row, launches
 
 
+def fleet_launches(n_frames: int) -> dict:
+    """The nonzero launch counters of a fleet run of ``n_frames`` ticks
+    through the kernels: 21 placements and 4 HP queries a tick, every HP
+    query on the vector route."""
+    return {"fused_place": FUSED_PER_TICK * n_frames,
+            "window_query_batched": HP_QUERIES_PER_TICK * n_frames,
+            "window_query_vec": HP_QUERIES_PER_TICK * n_frames}
+
+
+def flatten(d: dict, prefix: str = "") -> dict:
+    """A nested dict's leaves keyed by their dotted paths."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def calibration_phase(dev):
+    """Phase 13: the serial DES's RAS / WPS / HYB frame-completion rates
+    (host Python, each run timed); then the committed calibration grid
+    (``baseline.json``'s ``generated_from``) through ``run_calibration`` on
+    the card: 21 placement and 4 HP-query launches a tick at every point,
+    the report inside the committed bands and equal, key by key, to the
+    plain path's (``placement_backend="ref"``, no launch). Each fleet point
+    is timed alone and one is profiled. Returns the grid's report and its
+    launch counts."""
+    from repro_torch.calib import (
+        CalibConfig, check_report, load_baseline, run_calibration,
+    )
+    from repro_torch.calib.gate import _cell_tolerances
+    from repro_torch.calib.harness import _fleet_point, hash_cell
+    from repro_torch.fleet import FleetParams
+    from repro_torch.sim.engine import ExperimentConfig, run_experiment
+
+    baseline = load_baseline(str(BASELINE))
+    grid = baseline["generated_from"]
+    cfg = CalibConfig(scenarios=tuple(grid["scenarios"]),
+                      congestion_levels=tuple(grid["congestion_levels"]),
+                      n_seeds=grid["n_seeds"], n_frames=grid["n_frames"],
+                      n_devices=grid["n_devices"])
+    seeds = tuple(range(cfg.base_seed, cfg.base_seed + cfg.n_seeds))
+
+    rates, serial_s = {}, []
+    for sched in SERIAL_SCHEDULERS:
+        for trace in SERIAL_TRACES:
+            for duty in cfg.congestion_levels:
+                fc = []
+                for seed in seeds:
+                    t0 = time.perf_counter()
+                    m = run_experiment(ExperimentConfig(
+                        scheduler=sched, trace=trace, n_frames=cfg.n_frames,
+                        n_devices=cfg.n_devices, duty_cycle=duty, seed=seed))
+                    serial_s.append(time.perf_counter() - t0)
+                    fc.append(m.frame_completion_rate)
+                rates[f"{sched} {trace}@{duty:g}"] = sum(fc) / len(fc)
+    serial_s.sort()
+    emit({"phase": "calibration_serial", "entry": "run_experiment",
+          "frames": cfg.n_frames, "seeds": list(seeds),
+          "frame_completion_rate_mean_over_seeds": rates,
+          "runs": len(serial_s), "host_s_per_run": {
+              "min": serial_s[0], "median": serial_s[len(serial_s) // 2],
+              "max": serial_s[-1]}})
+    check(all(0.0 < r <= 1.0 for r in rates.values()),
+          f"serial frame-completion rates out of range: {rates}")
+
+    n_points = len(cfg.scenarios) * len(cfg.congestion_levels)
+    want_point = fleet_launches(cfg.n_frames)
+    torch.cuda.synchronize()
+    reset_counts()
+    report, wall = timed(lambda: run_calibration(cfg, device=dev))
+    grid_counts = nonzero_counts()
+    ok, failures = check_report(report, baseline)
+    tightest = min(
+        (tol - abs(point["delta"][m]), c, m)
+        for c, point in report["cells"].items()
+        for m, tol in _cell_tolerances(c, baseline).items()
+        if m in point["delta"])
+
+    point_ms, point_counts, point_differs = {}, {}, []
+    for scen in cfg.scenarios:
+        for cong in cfg.congestion_levels:
+            cell = f"{scen}@{cong:g}"
+            reset_counts()
+            view, secs = timed(lambda: _fleet_point(
+                scen, cong, cfg.n_frames, cfg.n_devices, seeds,
+                cfg.fleet_params(), dev))
+            point_ms[cell] = 1e3 * secs
+            point_counts[cell] = nonzero_counts()
+            if ({k: round(v, 4) for k, v in view.items()}
+                    != report["cells"][cell]["fleet"]):
+                point_differs.append(cell)
+    busy = profile_device(lambda: _fleet_point(
+        cfg.scenarios[0], cfg.congestion_levels[0], cfg.n_frames,
+        cfg.n_devices, seeds, cfg.fleet_params(), dev),
+        f"calibration fleet point {cfg.scenarios[0]}@"
+        f"{cfg.congestion_levels[0]:g}")
+
+    plain_cfg = dataclasses.replace(cfg, params=FleetParams(
+        n_devices=cfg.n_devices, placement_backend="ref"))
+    torch.cuda.synchronize()
+    reset_counts()
+    plain, plain_wall = timed(lambda: run_calibration(plain_cfg, device=dev))
+    plain_counts = nonzero_counts()
+    flat_k, flat_p = flatten(report), flatten(plain)
+    differing = sorted(k for k in flat_k.keys() | flat_p.keys()
+                       if flat_k.get(k) != flat_p.get(k))
+
+    ms = sorted(point_ms.values())
+    emit({"phase": "calibration", "entry": "run_calibration",
+          "grid": report["_config"], "points": n_points,
+          "replicas_a_point": len(seeds),
+          "burst_seed_of": {s: hash_cell(s) for s in cfg.scenarios},
+          "grid_seconds": wall, "plain_grid_seconds": plain_wall,
+          "fleet_point_ms": point_ms,
+          "fleet_point_ms_min_median_max": [ms[0], ms[len(ms) // 2], ms[-1]],
+          "fleet_point_ms_per_tick_median": ms[len(ms) // 2] / cfg.n_frames,
+          "fleet_point_device_busy_share": busy["device_busy_share"],
+          "fleet_point_device_busy_ms": busy["device_busy_ms"],
+          "fleet_point_profiled_wall_ms": busy["wall_ms"],
+          "launches": grid_counts, "plain_launches": plain_counts,
+          "gate_ok": ok, "gate_failures": failures,
+          "tightest_margin": {
+              "cell": tightest[1], "metric": tightest[2],
+              "delta": report["cells"][tightest[1]]["delta"][tightest[2]],
+              "band_minus_abs_delta": tightest[0]},
+          "plain_report_differs": differing,
+          "max_abs_delta": {c: p["max_abs_delta"]
+                            for c, p in report["cells"].items()},
+          "fleet_frame_completion_rate": {
+              c: p["fleet"]["frame_completion_rate"]
+              for c, p in report["cells"].items()},
+          "serial_frame_completion_rate": {
+              c: p["serial"]["frame_completion_rate"]
+              for c, p in report["cells"].items()}})
+    check(grid_counts == {k: n_points * v for k, v in want_point.items()},
+          f"the calibration grid launched {grid_counts}, not {n_points} x "
+          f"{want_point}")
+    bad = {c: n for c, n in point_counts.items() if n != want_point}
+    check(not bad, f"calibration points launched {bad}, not {want_point}")
+    check(not point_differs, f"fleet points alone differ from the grid's "
+                             f"report at {point_differs}")
+    check(ok, f"the calibration fails the committed baseline: {failures}")
+    check(plain_counts == {}, f"the plain calibration launched "
+                              f"{plain_counts}")
+    check(not differing, f"kernel and plain calibration reports differ in "
+                         f"{differing}")
+    return report, grid_counts
+
+
+def sanitize_phase(dev, values, bw, calib_report):
+    """Phase 14: ``REPRO_SANITIZE=1`` on the card. The main fleet's B_MAIN
+    replicas for ``SANITIZE_FRAMES`` ticks through the kernels, flag off,
+    on, on, off: every run bit-identical to the first, with the same
+    launches, each timed; one calibration point under the flag passes the
+    committed bands (and equals the grid's cell); a fleet with one
+    corrupted window raises ``SanitizeError`` naming the window order."""
+    from repro_torch.analysis import sanitize
+    from repro_torch.calib import (
+        CalibConfig, check_report, load_baseline, run_calibration,
+    )
+    from repro_torch.core.tensor_state import SchedState
+    from repro_torch.fleet import FleetParams, FleetState, FleetStats
+    from repro_torch.fleet import fleet_run, make_fleet
+
+    params = FleetParams()
+    F = values.shape[0]
+    saved = os.environ.get(sanitize.ENV_VAR)
+
+    def set_flag(on: bool):
+        if on:
+            os.environ[sanitize.ENV_VAR] = "1"
+        else:
+            os.environ.pop(sanitize.ENV_VAR, None)
+
+    def leaves(out):
+        state, stats = out
+        return [*state.sched, *state[1:], *stats]
+
+    names = ([f"sched.{f}" for f in SchedState._fields]
+             + list(FleetState._fields[1:]) + list(FleetStats._fields))
+    runs = []
+    try:
+        for on in (False, True, True, False):
+            set_flag(on)
+            fleet = make_fleet(B_MAIN, device=dev)
+            torch.cuda.synchronize()
+            reset_counts()
+            out, secs = timed(lambda: fleet_run(fleet, values, bw,
+                                                params=params))
+            runs.append((on, leaves(out), nonzero_counts(), secs))
+            del out, fleet
+
+        set_flag(True)
+        point_cfg = CalibConfig(scenarios=("uniform",),
+                                congestion_levels=(0.0,),
+                                n_seeds=calib_report["_config"]["n_seeds"],
+                                n_frames=calib_report["_config"]["n_frames"])
+        reset_counts()
+        point = run_calibration(point_cfg, device=dev)
+        point_counts = nonzero_counts()
+        ok, failures = check_report(point, load_baseline(str(BASELINE)))
+
+        fleet = make_fleet(B_MAIN, device=dev)
+        first = (0,) * fleet.sched.win_t1.ndim
+        fleet.sched.win_t1[first] = 9.0
+        fleet.sched.win_t2[first] = 1.0
+        fleet.sched.win_valid[first] = True
+        tripped = None
+        try:
+            fleet_run(fleet, values[:2], bw[:2], params=params)
+        except sanitize.SanitizeError as err:
+            tripped = str(err)
+        del fleet
+    finally:
+        if saved is None:
+            os.environ.pop(sanitize.ENV_VAR, None)
+        else:
+            os.environ[sanitize.ENV_VAR] = saved
+
+    base = runs[0][1]
+    differing = sorted({n for _, ls, _, _ in runs[1:]
+                        for n, a, b in zip(names, base, ls)
+                        if not bit_equal(a, b)})
+    run_counts = [c for _, _, c, _ in runs]
+    ms_tick = {"off": [1e3 * s / F for on, _, _, s in runs if not on],
+               "on": [1e3 * s / F for on, _, _, s in runs if on]}
+    cell = "uniform@0"
+    emit({"phase": "sanitize", "replicas": B_MAIN, "frames": F,
+          "order": ["off", "on", "on", "off"],
+          "ms_per_tick": ms_tick, "launches": run_counts,
+          "differing": differing,
+          "calibration_point": cell, "calibration_gate_ok": ok,
+          "calibration_gate_failures": failures,
+          "calibration_point_launches": point_counts,
+          "calibration_point_equals_grid":
+              point["cells"].get(cell) == calib_report["cells"].get(cell),
+          "corrupted_fleet_raised": tripped})
+    want = fleet_launches(F)
+    check(all(c == want for c in run_counts),
+          f"fleet launches with and without the flag: {run_counts}, not "
+          f"{want}")
+    check(not differing, f"the sanitized fleet differs in {differing}")
+    check(ok, f"the sanitized calibration point fails the committed "
+              f"baseline: {failures}")
+    check(point_counts == fleet_launches(point_cfg.n_frames),
+          f"the sanitized calibration point launched {point_counts}")
+    check(point["cells"].get(cell) == calib_report["cells"].get(cell),
+          "the sanitized calibration point differs from the grid's")
+    check(tripped is not None and "window order" in tripped,
+          f"the corrupted fleet did not trip the window-order check: "
+          f"{tripped}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1601,7 +1880,7 @@ def main() -> None:
                                  params=p)
         torch.cuda.synchronize()
         runs[backend] = (state, stats, time.perf_counter() - t0)
-        run_counts[backend] = {k: v for k, v in counts().items() if v}
+        run_counts[backend] = nonzero_counts()
     (sk, tk, wall_k), (sr, tr, wall_r) = runs["auto"], runs["ref"]
     diff = [f for f, a, b in zip(FleetStats._fields, tk, tr)
             if not bit_equal(a, b)]
@@ -1619,11 +1898,9 @@ def main() -> None:
           "summaries_equal_main_path": same_summary,
           "launches": run_counts,
           "kernel_path_seconds": wall_k, "plain_path_seconds": wall_r})
-    check(run_counts["ref"] == {} and run_counts["auto"] == {
-        "fused_place": FUSED_PER_TICK * N_FRAMES,
-        "window_query_batched": HP_QUERIES_PER_TICK * N_FRAMES,
-        "window_query_vec": HP_QUERIES_PER_TICK * N_FRAMES},
-        f"fleet launches by backend: {run_counts}")
+    check(run_counts["ref"] == {}
+          and run_counts["auto"] == fleet_launches(N_FRAMES),
+          f"fleet launches by backend: {run_counts}")
     check(not diff, f"kernel and plain main paths differ in {diff}")
     check(same_summary, "plain-path summaries differ from run_sweep's")
 
@@ -1813,6 +2090,11 @@ def main() -> None:
     single_controller_phase(dev)
     racy_row, racy_launches = fixture_phase(dev)
 
+    # -- 13. the calibration; 14. the sanitizers -----------------------------
+    calib_report, calib_counts = calibration_phase(dev)
+    sanitize_phase(dev, values[:SANITIZE_FRAMES], bw[:SANITIZE_FRAMES],
+                   calib_report)
+
     def path_launches(name):
         """The kernel's launches on each main path that ran it (forward and
         decode counted apart), and their sum."""
@@ -1846,7 +2128,10 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/placement/csrc/placement.cu",
         "replaces": "src/repro/kernels/placement/placement.py:74",
-        "launches": launches,
+        "launches": launches + calib_counts["fused_place"],
+        "launches_by_path": {
+            "fleet run_sweep": launches,
+            "calibration run_calibration": calib_counts["fused_place"]},
         "matched": True,
         "max_abs_err": kernel_err,
         "case": "fleet-8192",
@@ -1893,10 +2178,14 @@ def main() -> None:
             for k in ("split_ms", "combine_ms")},
          "launch_parameters": {k: new_rows["flash_decode"][k]
                                for k in ("n_split", "chunk")}},
-        wq_entry("window_query_batched", hp_queries,
-                 {"fleet run_sweep": hp_queries},
-                 {"vec": hp_vec,
-                  "scalar": fleet_counts["window_query_scalar"]},
+        wq_entry("window_query_batched",
+                 hp_queries + calib_counts["window_query_batched"],
+                 {"fleet run_sweep": hp_queries,
+                  "calibration run_calibration":
+                      calib_counts["window_query_batched"]},
+                 {"vec": hp_vec + calib_counts.get("window_query_vec", 0),
+                  "scalar": fleet_counts["window_query_scalar"]
+                  + calib_counts.get("window_query_scalar", 0)},
                  "src/repro/kernels/window_query/window_query.py:115"),
         wq_entry("window_query", wq_path["all"],
                  {"window_query_op, bench_query's 1024 devices":

@@ -24,13 +24,13 @@ order can flip a near-tie in the track ranking and trim another track.
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.analysis import sanitize as _sanitize
 from repro_torch.core.tasks import ALL_CONFIGS, DEVICE_CORES
 
 BIG = 1e30
@@ -176,7 +176,8 @@ def _trim_tracks(t1, t2, valid, s, e, md, active):
     return new_t1, new_t2, new_valid, n_drop, t_drop
 
 
-def fanout_commit(t1, t2, valid, min_dur, dev, cfg, s, e, do):
+def fanout_commit(t1, t2, valid, min_dur, dev, cfg, s, e, do, *,
+                  sanitize: bool = False):
     """Batched §IV.A.1 fan-out commit: consume ``[s, e)`` on device ``dev``
     across every config list, trimming the ``OCC_TABLE[cfg, ci]``
     most-overlapping tracks of each list ``ci`` (multi-remainder).
@@ -186,6 +187,8 @@ def fanout_commit(t1, t2, valid, min_dur, dev, cfg, s, e, do):
     ``[N]`` masks the commit per row. Returns new tensors
     ``(t1', t2', valid', n_dropped [N], time_dropped [N])``; the inputs are
     not modified, and rows with ``do=False`` are copied bit for bit.
+    ``sanitize=True`` checks window order and that no row's availability
+    grew (``analysis/sanitize.py``); it changes no result.
     """
     N, n_dev, n_cfg, T, W = t1.shape
     rows = torch.arange(N, device=t1.device)
@@ -222,6 +225,15 @@ def fanout_commit(t1, t2, valid, min_dur, dev, cfg, s, e, do):
     out_valid[rows, dev] = torch.where(dom, nv, vd)
     n_drop = torch.where(do, n_drop.sum((1, 2), dtype=torch.int32), 0)
     t_drop = torch.where(do, _seq_sum(t_drop.reshape(N, -1)), 0.0)
+    if sanitize:
+        _sanitize.check_windows(out_t1, out_t2, out_valid, "fanout_commit")
+        _sanitize.check_no_avail_increase(
+            _sanitize.total_availability(t1, t2, valid, batch_axes=1),
+            _sanitize.total_availability(
+                out_t1, out_t2, out_valid, batch_axes=1
+            ),
+            "fanout_commit",
+        )
     return out_t1, out_t2, out_valid, n_drop, t_drop
 
 
@@ -271,13 +283,9 @@ def compact_state(state: SchedState) -> SchedState:
 # single-controller placement (pure functions of SchedState)
 # ---------------------------------------------------------------------------
 
-def _sanitize_unported(fn: str) -> None:
-    """``REPRO_SANITIZE=1`` asks for checked invariants that this package
-    does not have yet: refuse rather than run unchecked."""
-    if os.environ.get("REPRO_SANITIZE", "0") not in ("", "0"):
-        raise NotImplementedError(
-            f"{fn} with REPRO_SANITIZE set: the sanitizers are not ported "
-            f"yet (ROADMAP, queue 1 item 3: sanitizers)")
+def _total(state: SchedState):
+    return _sanitize.total_availability(
+        state.win_t1, state.win_t2, state.win_valid)
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -299,10 +307,12 @@ def _device_slot(state: SchedState, dev, cfg_idx: int, q1, deadline, dur):
     return best < BIG, best
 
 
-def _bisect(state: SchedState, dev, cfg_idx: int, s, e, do=True):
+def _bisect(state: SchedState, dev, cfg_idx: int, s, e, do=True,
+            sanitize: bool = False):
     """Consume ``[s, e)`` from device ``dev`` across every config list (the
     §IV.A.1 fan-out write) for a committed task of config ``cfg_idx``,
-    keeping every min-duration remainder; ``do`` masks the commit. Returns
+    keeping every min-duration remainder; ``do`` masks the commit;
+    ``sanitize`` checks the commit (``fanout_commit``). Returns
     ``(new_state, n_dropped)``. (The JAX package's ``track`` and ``slot``
     arguments, which it ignores, are left out.)"""
     device = state.win_t1.device
@@ -312,7 +322,7 @@ def _bisect(state: SchedState, dev, cfg_idx: int, s, e, do=True):
         state.win_t1[None], state.win_t2[None], state.win_valid[None],
         state.min_dur[None], one(dev, torch.int32),
         one(cfg_idx, torch.int32), one(s, torch.float32),
-        one(e, torch.float32), one(do, torch.bool),
+        one(e, torch.float32), one(do, torch.bool), sanitize=sanitize,
     )
     return state._replace(
         win_t1=t1[0], win_t2=t2[0], win_valid=valid[0]), n_drop[0]
@@ -321,15 +331,25 @@ def _bisect(state: SchedState, dev, cfg_idx: int, s, e, do=True):
 def hp_place(state: SchedState, dev, now, *, cfg_idx: int = 0):
     """High-priority placement (§IV.B.1): strict containment of
     ``[now, now + dur)`` on the source device ``dev``, committed.
-    Returns ``(found, start, new_state)``; ``state`` is left as it was."""
-    _sanitize_unported("hp_place")
+    Returns ``(found, start, new_state)``; ``state`` is left as it was.
+    Under ``REPRO_SANITIZE=1`` the input, the commit and the output are
+    checked (``analysis/sanitize.py``), raising ``SanitizeError`` on a trip;
+    the results are the same either way."""
+    sanitize = _sanitize.enabled()
+    if sanitize:
+        _sanitize.check_sched_state(state, "hp_place input")
+        before = _total(state)
     device = state.win_t1.device
     now = _f32(now, device)
     dur = state.min_dur[cfg_idx]
     found, start = _device_slot(
         state, dev, cfg_idx, now, now + dur + _f32(1e-6, device), dur)
     new_state, _ = _bisect(state, dev, cfg_idx, start, start + dur,
-                           do=found)
+                           do=found, sanitize=sanitize)
+    if sanitize:
+        _sanitize.check_sched_state(new_state, "hp_place output")
+        _sanitize.check_no_avail_increase(before, _total(new_state),
+                                          "hp_place")
     return found, start, new_state
 
 
@@ -340,8 +360,12 @@ def lp_place(state: SchedState, src_dev, now, deadline, *,
     devices, prefer the source device, commit the placement. Returns
     ``(all_ok, oks, devs, starts, new_state)`` with ``oks``, ``devs``
     (int32) and ``starts`` of length ``n_tasks``; ``state`` is left as it
-    was. The JAX package's ``lax.scan`` over the tasks is a loop here."""
-    _sanitize_unported("lp_place")
+    was. The JAX package's ``lax.scan`` over the tasks is a loop here.
+    ``REPRO_SANITIZE=1`` checks as ``hp_place`` does."""
+    sanitize = _sanitize.enabled()
+    if sanitize:
+        _sanitize.check_sched_state(state, "lp_place input")
+        before = _total(state)
     device = state.win_t1.device
     now, deadline = _f32(now, device), _f32(deadline, device)
     dur = state.min_dur[cfg_idx]
@@ -373,9 +397,13 @@ def lp_place(state: SchedState, src_dev, now, deadline, *,
         d = key.argmin()
         ok = feasible[d]
         start = starts_adj[d]
-        st, _ = _bisect(st, d, cfg_idx, start, start + dur, do=ok)
+        st, _ = _bisect(st, d, cfg_idx, start, start + dur, do=ok,
+                        sanitize=sanitize)
         oks.append(ok)
         devs.append(d.to(torch.int32))
         starts.append(start)
     oks, devs, starts = torch.stack(oks), torch.stack(devs), torch.stack(starts)
+    if sanitize:
+        _sanitize.check_sched_state(st, "lp_place output")
+        _sanitize.check_no_avail_increase(before, _total(st), "lp_place")
     return oks.all(), oks, devs, starts, st

@@ -38,9 +38,10 @@ import dataclasses
 
 import torch
 
+from repro_torch.analysis import sanitize as _sanitize
 from repro_torch.core.tasks import FRAME_PERIOD, MAX_IMAGE_BYTES
 from repro_torch.core.tensor_state import (
-    BIG, SchedState, _sanitize_unported, compact_state, fanout_commit,
+    BIG, SchedState, compact_state, fanout_commit,
 )
 from repro_torch.fleet.metrics import init_stats
 from repro_torch.fleet.state import FleetState
@@ -385,15 +386,31 @@ def _frame_step(carry, f: int, v, bws, p: FleetParams):
             (vc_s, vc_end, vc_dl, vc_src, vc_ok), stats)
 
 
+def _check_tick(carry) -> None:
+    """The reference's per-tick invariants (``REPRO_SANITIZE=1``)."""
+    st, link_free, _, (vc_s, vc_end, _, _, vc_ok), _ = carry
+    _sanitize.check_windows(st.win_t1, st.win_t2, st.win_valid, "fleet tick")
+    _sanitize.check(
+        (~vc_ok | (vc_s <= vc_end)).all(),
+        "victim cache corrupt (fleet tick): a live entry has start > end",
+    )
+    _sanitize.check(
+        (link_free >= 0.0).all(),
+        "negative link_free (fleet tick): {lf}", lf=lambda: link_free.min(),
+    )
+
+
 def fleet_run(fleet: FleetState, values, bw_scale, *, params: FleetParams):
     """Advance a whole fleet over ``values`` ([F, B, Dev] workload) in
     ``segment_frames``-tick segments; ``bw_scale`` is [F, B] (or
     broadcasts to it). Runs on the device of the fleet's tensors and
     returns ``(state, stats)``. The input ``fleet`` is left untouched: the
     engine runs on a copy, which the CUDA kernel then updates in place.
-    ``REPRO_SANITIZE=1`` raises: the per-tick checks are not ported yet.
+    ``REPRO_SANITIZE=1`` checks each segment's input state and every tick's
+    windows, victim cache and link (``analysis/sanitize.py``), raising
+    ``SanitizeError`` on a trip; the results and launches are the same
+    either way.
     """
-    _sanitize_unported("fleet_run")
     p = params
     if p.mesh_shards >= 1:
         raise NotImplementedError(
@@ -426,9 +443,14 @@ def fleet_run(fleet: FleetState, values, bw_scale, *, params: FleetParams):
                fleet.vc_src, fleet.vc_valid)),
         init_stats(B, device=device),
     )
+    sanitize = _sanitize.enabled()
     for f0 in range(0, F, max(S, 1)):
+        if sanitize:
+            _sanitize.check_sched_state(carry[0], "fleet segment input")
         for f in range(f0, min(f0 + S, F)):
             carry = _frame_step(carry, f, values[f], bw_scale[f], p)
+            if sanitize:
+                _check_tick(carry)
     sched, link_free, rq, vc, stats = carry
     out = FleetState(
         sched=sched, link_free=link_free,

@@ -1,1 +1,1 @@
-"""Workload traces of the mobile-edge testbed (§V)."""
+"""Discrete-event simulation of the mobile-edge testbed (§V)."""

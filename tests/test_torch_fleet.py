@@ -209,17 +209,3 @@ def test_unported_options_raise(change):
     values, bw = _population(2, seed=1)
     with pytest.raises(NotImplementedError):
         fleet_run(make_fleet(B, device="cpu"), values, bw, params=p)
-
-
-def test_fleet_run_and_run_sweep_refuse_sanitize(monkeypatch):
-    """REPRO_SANITIZE=1 asks for the per-tick checks of the reference's
-    checkified segment, which are not ported: both entry points refuse
-    rather than run unchecked."""
-    monkeypatch.setenv("REPRO_SANITIZE", "1")
-    values, bw = _population(2, seed=1)
-    with pytest.raises(NotImplementedError, match="REPRO_SANITIZE"):
-        fleet_run(make_fleet(B, device="cpu"), values, bw,
-                  params=_params(FleetParams, 4))
-    with pytest.raises(NotImplementedError, match="REPRO_SANITIZE"):
-        run_sweep(SweepConfig(scenarios=("uniform",), n_seeds=2,
-                              n_frames=2, batch_size=2), device="cpu")

@@ -243,12 +243,3 @@ def test_placements_leave_their_input_state(states):
     S.hp_place(st, 1, 30.0)
     S.lp_place(st, 1, 30.0, 90.0, n_tasks=4)
     _assert_same(st, before)
-
-
-@pytest.mark.parametrize("fn,args", [
-    (S.hp_place, (0, 30.0)), (S.lp_place, (0, 30.0, 90.0)),
-])
-def test_sanitize_is_not_ported(states, monkeypatch, fn, args):
-    monkeypatch.setenv("REPRO_SANITIZE", "1")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        fn(states[0][1], *args)
