@@ -100,7 +100,26 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    ``REPRO_SANITIZE`` off, on, on, off must be bit-identical with the same
    launches (ms a tick each); one calibration point under the flag must
    pass the committed bands; a fleet with one corrupted window must raise
-   ``SanitizeError`` naming the window order, and the run goes on.
+   ``SanitizeError`` naming the window order, and the run goes on;
+15. telemetry: the fleet path's 8192 replicas for 95 ticks with
+   ``telemetry`` off, on, on, off (ms a tick each), bit-identical to the
+   main fleet run with 21 + 4 launches a tick; the record's 17 series
+   equal bit for bit to the plain path's and to a stride-5 record's
+   rows, the ``*_d`` series summing to the final counters, the ``.npz``
+   round trip and the Chrome trace of replicas 0 and 8191 valid;
+16. profile: a ``PhaseTimer`` counts one ``fleet/segment`` span a
+   segment; with ``REPRO_PROFILE_DIR`` set a 5-tick run writes one
+   ``torch.profiler`` trace naming ``fused_place_kernel`` and
+   ``window_query_kernel``; under ``profile_device`` it still runs and
+   writes nothing;
+17. obs CLI: ``repro_torch.obs.cli.main`` records B 8 x 95 frames of
+   weighted2 at 0.3 on the card (equal bit for bit to the host's) and
+   the serial DES, exports and summarises both; the traces valid;
+18. sharded: ``run_sweep(mesh_shards=1)`` of the fleet cell, in one
+   batch and in batches of 3000 (a tail of owners -1), within 1e-5 of
+   the unsharded sweep with residual 0 and 21 + 4 launches a tick;
+   ``mesh_shards=2`` raises on one card; the per-cell reduction's time
+   and the bytes a batch copies to the host.
 
 Every phase line carries ``elapsed_s``, the seconds since the start. Then
 one ``{"kernels": [...]}`` line, and as the last line
@@ -191,6 +210,10 @@ BASELINE = ROOT / "results" / "calib" / "baseline.json"
 SERIAL_SCHEDULERS = ("ras", "wps", "hyb")
 SERIAL_TRACES = ("weighted2", "weighted4")
 SANITIZE_FRAMES = 10              # ticks of the sanitized B_MAIN fleet
+OBS_DIR = ROOT / "build" / "chip_smoke_obs"   # git-ignored
+TELEMETRY_STRIDE = 5              # the strided record's telemetry_every
+SWEEP_TAIL_BATCH = 3000           # batches of the padded sharded sweep
+CLI_BATCH = 8                     # replicas of the obs CLI's recording
 
 
 T_START = time.perf_counter()
@@ -1624,6 +1647,37 @@ def calibration_phase(dev):
     return report, grid_counts
 
 
+def fleet_leaves(state, stats) -> list:
+    """Every state leaf and counter of a fleet run, in a fixed order."""
+    return [*state.sched, *state[1:], *stats]
+
+
+def fleet_leaf_names() -> list:
+    from repro_torch.core.tensor_state import SchedState
+    from repro_torch.fleet import FleetState, FleetStats
+
+    return ([f"sched.{f}" for f in SchedState._fields]
+            + list(FleetState._fields[1:]) + list(FleetStats._fields))
+
+
+def differing_leaves(want, got) -> list:
+    return [n for n, a, b in zip(fleet_leaf_names(), want, got)
+            if not bit_equal(a, b)]
+
+
+def differing_series(rec_a, rec_b, rows=None) -> list:
+    """Series of two telemetry records that differ bit for bit (``rows``
+    picks rows of ``rec_a``)."""
+    out = []
+    for name in rec_a.series._fields:
+        a, b = getattr(rec_a.series, name), getattr(rec_b.series, name)
+        a = a if rows is None else a[rows]
+        if a.dtype != b.dtype or a.shape != b.shape or a.tobytes() != \
+                b.tobytes():
+            out.append(name)
+    return out
+
+
 def sanitize_phase(dev, values, bw, calib_report):
     """Phase 14: ``REPRO_SANITIZE=1`` on the card. The main fleet's B_MAIN
     replicas for ``SANITIZE_FRAMES`` ticks through the kernels, flag off,
@@ -1635,9 +1689,7 @@ def sanitize_phase(dev, values, bw, calib_report):
     from repro_torch.calib import (
         CalibConfig, check_report, load_baseline, run_calibration,
     )
-    from repro_torch.core.tensor_state import SchedState
-    from repro_torch.fleet import FleetParams, FleetState, FleetStats
-    from repro_torch.fleet import fleet_run, make_fleet
+    from repro_torch.fleet import FleetParams, fleet_run, make_fleet
 
     params = FleetParams()
     F = values.shape[0]
@@ -1649,12 +1701,6 @@ def sanitize_phase(dev, values, bw, calib_report):
         else:
             os.environ.pop(sanitize.ENV_VAR, None)
 
-    def leaves(out):
-        state, stats = out
-        return [*state.sched, *state[1:], *stats]
-
-    names = ([f"sched.{f}" for f in SchedState._fields]
-             + list(FleetState._fields[1:]) + list(FleetStats._fields))
     runs = []
     try:
         for on in (False, True, True, False):
@@ -1664,7 +1710,7 @@ def sanitize_phase(dev, values, bw, calib_report):
             reset_counts()
             out, secs = timed(lambda: fleet_run(fleet, values, bw,
                                                 params=params))
-            runs.append((on, leaves(out), nonzero_counts(), secs))
+            runs.append((on, fleet_leaves(*out), nonzero_counts(), secs))
             del out, fleet
 
         set_flag(True)
@@ -1694,10 +1740,8 @@ def sanitize_phase(dev, values, bw, calib_report):
         else:
             os.environ[sanitize.ENV_VAR] = saved
 
-    base = runs[0][1]
     differing = sorted({n for _, ls, _, _ in runs[1:]
-                        for n, a, b in zip(names, base, ls)
-                        if not bit_equal(a, b)})
+                        for n in differing_leaves(runs[0][1], ls)})
     run_counts = [c for _, _, c, _ in runs]
     ms_tick = {"off": [1e3 * s / F for on, _, _, s in runs if not on],
                "on": [1e3 * s / F for on, _, _, s in runs if on]}
@@ -1726,6 +1770,364 @@ def sanitize_phase(dev, values, bw, calib_report):
     check(tripped is not None and "window order" in tripped,
           f"the corrupted fleet did not trip the window-order check: "
           f"{tripped}")
+
+
+def telemetry_phase(dev, values, bw, main_leaves):
+    """The fleet path's B_MAIN replicas for the 95 ticks with
+    ``telemetry`` off, on, on, off through the kernels (ms a tick each):
+    every run's state and stats bit-identical to the main fleet run,
+    with its launches; the record equal bit for bit to the plain path's
+    (``placement_backend="ref"``) and to a second run's; a stride-5
+    record equal to the full one at ticks 0, 5, ..., 90; the ``*_d``
+    series summing to the final counters; the ``.npz`` round trip; and
+    the Chrome trace of replicas 0 and B_MAIN - 1 valid."""
+    from repro_torch.fleet import FleetParams, fleet_run, make_fleet
+    from repro_torch.obs import (
+        fleet_trace_events, load_record, load_trace, validate_trace,
+        write_chrome_trace,
+    )
+
+    F = values.shape[0]
+    off, on = FleetParams(), FleetParams(telemetry=True)
+    runs = []
+    for p in (off, on, on, off):
+        fleet = make_fleet(B_MAIN, device=dev)
+        reset_counts()
+        out, secs = timed(lambda: fleet_run(fleet, values, bw, params=p))
+        runs.append((p.telemetry, out, nonzero_counts(), secs))
+        del fleet
+    differing = sorted({n for _, out, _, _ in runs
+                        for n in differing_leaves(main_leaves,
+                                                  fleet_leaves(*out[:2]))})
+    rec = runs[1][1][2]
+    rec_again = runs[2][1][2]
+    state, stats = runs[1][1][:2]
+
+    reset_counts()
+    strided = fleet_run(make_fleet(B_MAIN, device=dev), values, bw,
+                        params=FleetParams(telemetry=True,
+                                           telemetry_every=TELEMETRY_STRIDE))
+    strided_counts = nonzero_counts()
+    reset_counts()
+    plain, plain_secs = timed(lambda: fleet_run(
+        make_fleet(B_MAIN, device=dev), values, bw,
+        params=FleetParams(telemetry=True, placement_backend="ref")))
+    plain_counts = nonzero_counts()
+
+    stats_np = [x.cpu().numpy() for x in stats]
+    names = list(type(stats)._fields)
+    s = rec.series
+    unreconciled = [
+        f for f in ("hp_completed", "hp_failed", "hp_preempted",
+                    "lp_spawned", "lp_completed", "lp_failed",
+                    "lp_requeued", "missed_by_preemption")
+        if not (getattr(s, f + "_d").sum(0) == stats_np[names.index(f)]
+                ).all()]
+    if not (s.preempt_dev.sum((0, 2)) == stats_np[names.index(
+            "hp_preempted")]).all():
+        unreconciled.append("preempt_dev")
+    if not (s.hp_fail_dev.sum((0, 2)) == stats_np[names.index(
+            "hp_failed")]).all():
+        unreconciled.append("hp_fail_dev")
+
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    npz = OBS_DIR / "fleet_telemetry.npz"
+    rec.save(str(npz))
+    back = load_record(str(npz))
+    roundtrip = differing_series(rec, back) + [
+        k for k in ("n_frames", "every", "frame_period", "nominal_bw_bps")
+        if getattr(rec, k) != getattr(back, k)]
+    trace = OBS_DIR / "fleet_telemetry.trace.json"
+    events = fleet_trace_events(rec, replicas=[0, B_MAIN - 1])
+    write_chrome_trace(str(trace), events)
+    trace_errors = validate_trace(load_trace(str(trace)))
+
+    record_bytes = sum(x.nbytes for x in s)
+    ms_tick = {"off": [1e3 * t / F for tel, _, _, t in runs if not tel],
+               "on": [1e3 * t / F for tel, _, _, t in runs if tel]}
+    run_counts = [c for _, _, c, _ in runs]
+    stride_rows = list(range(0, F, TELEMETRY_STRIDE))
+    emit({"phase": "telemetry", "replicas": B_MAIN, "frames": F,
+          "order": ["off", "on", "on", "off"], "ms_per_tick": ms_tick,
+          "launches": run_counts, "differing_from_main_path": differing,
+          "recorded_ticks": int(rec.ticks.size),
+          "record_bytes": record_bytes,
+          "record_differs_from_plain_path": differing_series(rec, plain[2]),
+          "record_differs_between_runs": differing_series(rec, rec_again),
+          "plain_path_seconds": plain_secs, "plain_path_launches":
+              plain_counts,
+          "strided_every": TELEMETRY_STRIDE,
+          "strided_ticks": strided[2].ticks.tolist(),
+          "strided_differs_from_full": differing_series(
+              rec, strided[2], rows=stride_rows),
+          "strided_launches": strided_counts,
+          "series_not_reconciled": unreconciled,
+          "npz_bytes": npz.stat().st_size, "npz_roundtrip_differs":
+              roundtrip,
+          "trace_events": len(events), "trace_errors": trace_errors[:5]})
+    want = fleet_launches(F)
+    total = {k: v * (len(runs) + 1) for k, v in want.items()}
+    check(all(c == want for c in run_counts) and strided_counts == want,
+          f"fleet launches with and without telemetry: {run_counts}, "
+          f"strided {strided_counts}, not {want}")
+    check(plain_counts == {}, f"the plain path launched {plain_counts}")
+    check(not differing, f"telemetry changed the fleet's results in "
+                         f"{differing}")
+    check(rec.ticks.tolist() == list(range(F))
+          and rec.n_replicas == B_MAIN, "the record's ticks or replicas")
+    for label, diff in (
+            ("the plain path's", differing_series(rec, plain[2])),
+            ("a second run's", differing_series(rec, rec_again)),
+            ("the strided run's", differing_series(rec, strided[2],
+                                                   rows=stride_rows))):
+        check(not diff, f"the record differs from {label} in {diff}")
+    check(strided[2].ticks.tolist() == stride_rows, "strided ticks")
+    check(not unreconciled, f"series that do not sum to the final "
+                            f"counters: {unreconciled}")
+    check(not roundtrip, f"the .npz round trip changed {roundtrip}")
+    check(not trace_errors, f"invalid fleet trace: {trace_errors[:5]}")
+    return total
+
+
+def profile_phase(dev, values, bw):
+    """``obs/profile.py`` on the card: a PhaseTimer around the fleet path
+    counts one ``fleet/segment`` span a segment (and, with telemetry,
+    one host transfer); with ``REPRO_PROFILE_DIR`` set a 5-tick run
+    writes one ``torch.profiler`` trace naming both fleet kernels; under
+    ``profile_device``'s own profiler the hook passes through and the run
+    still works."""
+    from repro_torch.fleet import FleetParams, fleet_run, make_fleet
+    from repro_torch.obs import PhaseTimer, profile
+
+    F = values.shape[0]
+    params = FleetParams()
+    n_seg = -(-F // params.segment_frames)
+    spans = {}
+    for tel in (False, True):
+        fleet = make_fleet(B_MAIN, device=dev)
+        with PhaseTimer() as timer:
+            fleet_run(fleet, values, bw,
+                      params=dataclasses.replace(params, telemetry=tel))
+            torch.cuda.synchronize()
+        spans["on" if tel else "off"] = timer.summary()
+        del fleet
+
+    trace_dir = OBS_DIR / "torch_trace"
+    if trace_dir.exists():
+        for old in trace_dir.glob("*.json"):
+            old.unlink()
+    saved = os.environ.get(profile.ENV_VAR)
+    os.environ[profile.ENV_VAR] = str(trace_dir)
+    try:
+        reset_counts()
+        fleet_run(make_fleet(B_MAIN, device=dev), values[:5], bw[:5],
+                  params=params)
+        torch.cuda.synchronize()
+        traced_counts = nonzero_counts()
+        files = sorted(trace_dir.glob("*.pt.trace.json"))
+        names = set()
+        if files:
+            with open(files[0]) as f:
+                names = {e.get("name", "") for e in json.load(f).get(
+                    "traceEvents", []) if e.get("cat") == "kernel"}
+        fleet = make_fleet(B_MAIN, device=dev)
+        reset_counts()
+        prof = profile_device(
+            lambda: fleet_run(fleet, values[:5], bw[:5], params=params),
+            "fleet_run under REPRO_PROFILE_DIR",
+            track=("fused_place_kernel", "window_query_kernel"))
+        nested_counts = nonzero_counts()
+        files_after = sorted(trace_dir.glob("*.pt.trace.json"))
+    finally:
+        if saved is None:
+            os.environ.pop(profile.ENV_VAR, None)
+        else:
+            os.environ[profile.ENV_VAR] = saved
+    kernels = {k: any(k in n for n in names)
+               for k in ("fused_place_kernel", "window_query_kernel")}
+    emit({"phase": "profile", "replicas": B_MAIN, "frames": F,
+          "spans_off": spans["off"], "spans_on": spans["on"],
+          "segments": n_seg, "trace_files": [f.name for f in files],
+          "trace_bytes": files[0].stat().st_size if files else None,
+          "trace_kernels_named": kernels,
+          "trace_distinct_kernels": len(names),
+          "traced_launches": traced_counts,
+          "under_profile_device": {
+              "launches": nested_counts, "new_trace_files":
+                  len(files_after) - len(files),
+              "tracked": prof["tracked"],
+              "device_busy_share": prof["device_busy_share"]}})
+    for label, sp in spans.items():
+        check(sp.get("fleet/segment", {}).get("count") == n_seg,
+              f"telemetry {label}: {sp.get('fleet/segment')} segment spans, "
+              f"not {n_seg}")
+    check(spans["on"].get("fleet/telemetry_host_transfer", {}).get(
+        "count") == 1 and "fleet/telemetry_host_transfer" not in
+        spans["off"], "the telemetry host-transfer span")
+    check(len(files) == 1, f"REPRO_PROFILE_DIR wrote {len(files)} traces")
+    check(all(kernels.values()), f"the trace does not name {kernels}")
+    check(traced_counts == fleet_launches(5),
+          f"the traced run launched {traced_counts}")
+    check(nested_counts == fleet_launches(5) and files_after == files,
+          f"under profile_device: {nested_counts}, "
+          f"{len(files_after) - len(files)} new traces")
+    check(prof["tracked"]["fused_place_kernel"]["calls"]
+          == FUSED_PER_TICK * 5, f"profile_device saw {prof['tracked']}")
+    return {k: traced_counts.get(k, 0) + nested_counts.get(k, 0)
+            for k in set(traced_counts) | set(nested_counts)}
+
+
+def obs_cli_phase(dev):
+    """``python -m repro_torch.obs`` through ``main``: ``record`` of B 8
+    replicas x 95 frames of weighted2 at congestion 0.3 on the card (21 +
+    4 launches a tick) and on the host (the records equal bit for bit),
+    ``export`` and ``summary``; then the serial DES's recording, exported
+    and summarised. Both traces valid; each ``record`` timed."""
+    import contextlib
+    import io
+
+    from repro_torch.obs import cli, load_record, load_trace, validate_trace
+
+    out = {}
+    record = ["record", "--scenario", "weighted2", "--frames",
+              str(N_FRAMES), "--congestion", "0.3"]
+    fleet_args = ["--batch", str(CLI_BATCH)]
+    base = f"weighted2_b{CLI_BATCH}_f{N_FRAMES}_s0"
+    steps = {}
+    launches = None
+    for engine, device, args in (("fleet", "cuda", fleet_args),
+                                 ("fleet", "cpu", fleet_args),
+                                 ("serial", None, [])):
+        d = OBS_DIR / f"cli_{engine}_{device}"
+        argv = record + ["--engine", engine, "--out", str(d)] + args
+        if device:
+            argv += ["--device", device]
+        text = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(text):
+            rc, secs = timed(lambda: cli.main(argv))
+        rcs = [rc]
+        counts_ = nonzero_counts()
+        if (engine, device) == ("fleet", "cuda"):
+            launches = counts_
+        rec = next(str(p) for p in sorted(d.iterdir())
+                   if p.suffix in (".npz", ".jsonl"))
+        trace = os.path.splitext(rec)[0] + ".trace.json"
+        with contextlib.redirect_stdout(text):
+            rcs += [cli.main(["export", "--input", rec]),
+                    cli.main(["summary", "--input", rec]),
+                    cli.main(["summary", "--input", trace])]
+        steps[f"{engine}_{device}" if device else engine] = {
+            "rcs": rcs, "record_seconds": secs, "launches": counts_,
+            "recording": Path(rec).name,
+            "trace_errors": validate_trace(load_trace(trace))[:5],
+            "output": text.getvalue().splitlines()}
+        out[engine, device] = rec
+    card = load_record(out["fleet", "cuda"])
+    host = load_record(out["fleet", "cpu"])
+    card_vs_host = differing_series(card, host)
+    emit({"phase": "obs_cli", "steps": steps,
+          "recording": f"fleet_{base}", "ticks": int(card.ticks.size),
+          "card_record_differs_from_host": card_vs_host})
+    for name, step in steps.items():
+        check(step["rcs"] == [0, 0, 0, 0], f"obs CLI {name}: {step['rcs']}")
+        check(not step["trace_errors"], f"obs CLI {name}: invalid trace")
+    check(launches == fleet_launches(N_FRAMES),
+          f"the card's recording launched {launches}")
+    check(steps["fleet_cpu"]["launches"] == {}
+          and steps["serial"]["launches"] == {},
+          "a host recording launched a kernel")
+    check(card.ticks.size == N_FRAMES and card.n_replicas == CLI_BATCH,
+          "the card's recording")
+    check(not card_vs_host, f"card and host recordings differ in "
+                            f"{card_vs_host}")
+    return launches
+
+
+def sharded_phase(dev, summary, sweep, stats, state, owners):
+    """The sharded sweep on the card: ``run_sweep(mesh_shards=1)`` of the
+    fleet cell equals the unsharded sweep (cell means within 1e-5,
+    replicas exact, residual 0), also in batches of SWEEP_TAIL_BATCH
+    (the last batch's tail has owners -1); ``mesh_shards=2`` raises on
+    one card; 21 + 4 launches a tick; and the per-cell reduction of one
+    batch on the card: its time and the bytes it copies to the host."""
+    from repro_torch.fleet import (
+        SweepConfig, cell_moments, merge_cell_moments, run_sweep,
+        summarize_cells,
+    )
+
+    F = sweep.n_frames
+    cells = summary["_sweep"]["cells"]
+    results, run_counts, secs = {}, {}, {}
+    for bs in (sweep.batch_size, SWEEP_TAIL_BATCH):
+        cfg = dataclasses.replace(sweep, mesh_shards=1, batch_size=bs)
+        reset_counts()
+        results[bs], secs[bs] = timed(lambda: run_sweep(cfg, device=dev))
+        run_counts[bs] = nonzero_counts()
+    worst = {}
+    for bs, out in results.items():
+        worst[bs] = 0.0
+        for c in cells:
+            for key, val in summary[c].items():
+                if isinstance(val, dict) and "mean" in val:
+                    worst[bs] = max(worst[bs], abs(out[c][key]["mean"]
+                                                   - val["mean"]))
+    replicas_equal = {bs: all(out[c]["replicas"] == summary[c]["replicas"]
+                              for c in cells)
+                      for bs, out in results.items()}
+    residual = {bs: max(out[c]["conservation_residual"]["max_abs"]
+                        for c in cells) for bs, out in results.items()}
+    n_batches = {bs: -(-B_MAIN // bs) for bs in results}
+    tail_pad = n_batches[SWEEP_TAIL_BATCH] * SWEEP_TAIL_BATCH - B_MAIN
+
+    owner = torch.as_tensor(owners, device=dev)
+    cell_moments(stats, state.rq_valid, owner, n_cells=len(cells),
+                 n_frames=F)
+    torch.cuda.synchronize()
+    moments, reduce_s = timed(lambda: cell_moments(
+        stats, state.rq_valid, owner, n_cells=len(cells), n_frames=F))
+    host_bytes = sum(x.numel() * x.element_size() for x in moments)
+    batch_cells = summarize_cells(merge_cell_moments(None, moments))
+
+    two = "not run: more than one card"
+    if torch.cuda.device_count() < 2:
+        try:
+            run_sweep(dataclasses.replace(sweep, mesh_shards=2, n_seeds=1),
+                      device=dev)
+            two = None
+        except ValueError as err:
+            two = str(err)
+    emit({"phase": "sharded", "replicas": B_MAIN, "frames": F,
+          "batch_sizes": list(results), "batches": n_batches,
+          "tail_owners_minus_1": tail_pad,
+          "seconds": secs, "launches": run_counts,
+          "max_abs_mean_diff_from_unsharded": worst,
+          "replicas_equal": replicas_equal, "residual_max_abs": residual,
+          "mesh": results[sweep.batch_size]["_sweep"]["mesh"],
+          "reduction_ms": 1e3 * reduce_s,
+          "host_bytes_per_batch": host_bytes,
+          # what the unsharded sweep copies a batch: counters, pending
+          "host_bytes_per_batch_unsharded": sum(
+              x.numel() * x.element_size() for x in stats) + B_MAIN * 8,
+          "batch_frame_completion_rate": {
+              c: batch_cells[i]["frame_completion_rate"]
+              for i, c in enumerate(cells)},
+          "mesh_shards_2_on_one_card": two})
+    for bs in results:
+        want = {k: v * n_batches[bs] for k, v in fleet_launches(F).items()}
+        check(run_counts[bs] == want,
+              f"the sharded sweep in batches of {bs} launched "
+              f"{run_counts[bs]}, not {want}")
+        check(worst[bs] <= 1e-5 and replicas_equal[bs]
+              and residual[bs] == 0,
+              f"the sharded sweep in batches of {bs} differs from the "
+              f"unsharded one: {worst[bs]}, {replicas_equal[bs]}, "
+              f"residual {residual[bs]}")
+    check(tail_pad > 0, "the padded sweep has no owner -1 tail")
+    check(torch.cuda.device_count() > 1 or (two and "device" in two),
+          f"mesh_shards=2 on one card: {two}")
+    return {k: sum(c.get(k, 0) for c in run_counts.values())
+            for k in fleet_launches(F)}
 
 
 def main() -> None:
@@ -1888,6 +2290,7 @@ def main() -> None:
                                              sr.sched) if not bit_equal(a, b)]
     diff += [f for f, a, b in zip(sk._fields[1:], sk[1:], sr[1:])
              if not bit_equal(a, b)]
+    main_leaves = fleet_leaves(sk, tk)
     stats_np = stats_to_numpy(tr)
     pending = fleet_to_numpy(sr).rq_valid.sum(1)
     same_summary = all(
@@ -2095,6 +2498,21 @@ def main() -> None:
     sanitize_phase(dev, values[:SANITIZE_FRAMES], bw[:SANITIZE_FRAMES],
                    calib_report)
 
+    # -- 15. telemetry; 16. profile; 17. the obs CLI; 18. the sharded sweep
+    obs_counts = {
+        "fleet telemetry": telemetry_phase(dev, values, bw, main_leaves),
+        "fleet profile": profile_phase(dev, values, bw),
+        "obs CLI record": obs_cli_phase(dev),
+        "sharded run_sweep": sharded_phase(dev, summary, sweep, tk, sk,
+                                           owners),
+    }
+
+    def fleet_counts_by_path(name):
+        """A fleet kernel's launches on each fleet path but the main one."""
+        per = {"calibration run_calibration": calib_counts.get(name, 0)}
+        per.update((path, c.get(name, 0)) for path, c in obs_counts.items())
+        return per
+
     def path_launches(name):
         """The kernel's launches on each main path that ran it (forward and
         decode counted apart), and their sum."""
@@ -2128,10 +2546,10 @@ def main() -> None:
         "route": "cuda",
         "source": "src/repro_torch/kernels/placement/csrc/placement.cu",
         "replaces": "src/repro/kernels/placement/placement.py:74",
-        "launches": launches + calib_counts["fused_place"],
-        "launches_by_path": {
-            "fleet run_sweep": launches,
-            "calibration run_calibration": calib_counts["fused_place"]},
+        "launches": launches + sum(
+            fleet_counts_by_path("fused_place").values()),
+        "launches_by_path": {"fleet run_sweep": launches,
+                             **fleet_counts_by_path("fused_place")},
         "matched": True,
         "max_abs_err": kernel_err,
         "case": "fleet-8192",
@@ -2179,13 +2597,14 @@ def main() -> None:
          "launch_parameters": {k: new_rows["flash_decode"][k]
                                for k in ("n_split", "chunk")}},
         wq_entry("window_query_batched",
-                 hp_queries + calib_counts["window_query_batched"],
+                 hp_queries + sum(fleet_counts_by_path(
+                     "window_query_batched").values()),
                  {"fleet run_sweep": hp_queries,
-                  "calibration run_calibration":
-                      calib_counts["window_query_batched"]},
-                 {"vec": hp_vec + calib_counts.get("window_query_vec", 0),
-                  "scalar": fleet_counts["window_query_scalar"]
-                  + calib_counts.get("window_query_scalar", 0)},
+                  **fleet_counts_by_path("window_query_batched")},
+                 {"vec": hp_vec + sum(fleet_counts_by_path(
+                     "window_query_vec").values()),
+                  "scalar": fleet_counts["window_query_scalar"] + sum(
+                      fleet_counts_by_path("window_query_scalar").values())},
                  "src/repro/kernels/window_query/window_query.py:115"),
         wq_entry("window_query", wq_path["all"],
                  {"window_query_op, bench_query's 1024 devices":

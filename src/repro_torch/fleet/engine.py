@@ -18,6 +18,11 @@ query is one call of ``window_query_batched_op``, 4 launches of the CUDA
 window-query kernel a tick: 25 launches a tick in all. The HP commit,
 compaction and the bookkeeping are plain PyTorch.
 
+With ``telemetry`` on, each kept tick also captures the series of
+``obs/telemetry.py`` from the end-of-tick carry (read-only, ~120 small
+ops); with ``mesh_shards >= 1`` the batch is split across devices
+(``fleet/mesh.py``) and the shards advance tick by tick in turn.
+
 Every expression keeps the JAX package's operand order and dtypes, so a
 CPU run reproduces it bit for bit. Three rules make that hold:
 
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.analysis import sanitize as _sanitize
@@ -43,10 +49,13 @@ from repro_torch.core.tasks import FRAME_PERIOD, MAX_IMAGE_BYTES
 from repro_torch.core.tensor_state import (
     BIG, SchedState, compact_state, fanout_commit,
 )
+from repro_torch.fleet import mesh as _mesh
 from repro_torch.fleet.metrics import init_stats
 from repro_torch.fleet.state import FleetState
 from repro_torch.kernels.placement.ops import fused_place_op
 from repro_torch.kernels.window_query.ops import window_query_batched_op
+from repro_torch.obs import profile as _profile
+from repro_torch.obs import telemetry as _telemetry
 
 HP_IDX, LP2_IDX, LP4_IDX = 0, 1, 2
 MAX_LP = 4   # trace alphabet spawns at most 4 DNN tasks per frame
@@ -68,7 +77,11 @@ class FleetParams:
     #: the Pallas kernel's replica tile; the CUDA kernel's block is fixed
     #: at 128 replicas and does not read it.
     placement_block_b: int = 8
-    #: batch sharding over a device mesh: not ported yet, must stay 0.
+    #: split the batch across this many devices (``fleet/mesh.py``): 0
+    #: runs unsharded; 1 runs the sharded code path on one device. B is
+    #: padded up to a multiple of the shard count with no-op replicas,
+    #: trimmed from every output, so results are bit-identical to the
+    #: unsharded engine.
     mesh_shards: int = 0
     #: width of the per-replica victim re-queue buffer (0 disables the
     #: reallocation pass and reverts to capacity-eviction-only preemption).
@@ -78,8 +91,11 @@ class FleetParams:
     #: ticks per segment of the tick loop (0 -> one segment). The result
     #: does not depend on it.
     segment_frames: int = 40
-    #: in-loop telemetry: not ported yet, must stay False.
+    #: opt-in in-loop telemetry (``obs/telemetry.py``): ``fleet_run``
+    #: returns a third value, a TelemetryRecord of per-tick series. The
+    #: capture is read-only: state and stats stay bit-identical.
     telemetry: bool = False
+    #: keep every k-th tick of the telemetry series (ticks 0, k, 2k, ...).
     telemetry_every: int = 1
 
 
@@ -170,10 +186,17 @@ def _i32(x):
     return x.to(torch.int32)
 
 
-def _frame_step(carry, f: int, v, bws, p: FleetParams):
+def _frame_step(carry, f: int, v, bws, p: FleetParams,
+                capture: bool = False):
     """Advance every replica by one frame tick ``f`` (a host int); ``v`` is
-    the [B, Dev] workload of the tick, ``bws`` the [B] bandwidth scale."""
+    the [B, Dev] workload of the tick, ``bws`` the [B] bandwidth scale.
+    Returns the new carry and, with ``capture``, the tick's
+    ``TelemetryFrame`` (else None)."""
     st, link_free, (rq_dl, rq_src, rq_ok), vc, stats = carry
+    stats0 = stats
+    if capture:
+        # per-device decision counts, stacked to [B, Dev] at capture time
+        pd_run, pd_fail, pd_preempt, pd_lp = [], [], [], []
     vc_s, vc_end, vc_dl, vc_src, vc_ok = vc
     B = link_free.shape[0]
     n_dev = p.n_devices
@@ -349,6 +372,8 @@ def _frame_step(carry, f: int, v, bws, p: FleetParams):
         frame_ok = hp_ok
         src_d = torch.full((B,), d, dtype=torch.int32, device=device)
         dl = deadline[:, None].expand(B, n_dev)
+        if capture:
+            lp_placed_d = torch.zeros((B,), dtype=torch.int32, device=device)
         for k in range(MAX_LP):
             mask = hp_ok & (k < n_lp)
             comm_end = torch.maximum(link_free, release) + ttime
@@ -378,12 +403,27 @@ def _frame_step(carry, f: int, v, bws, p: FleetParams):
                 remainders_dropped=stats.remainders_dropped + nd,
             )
             frame_ok = frame_ok & (ok | (k >= n_lp))
+            if capture:
+                lp_placed_d = lp_placed_d + _i32(ok)
         stats = stats._replace(
             frames_completed=stats.frames_completed
             + (has_frame & frame_ok)
         )
-    return (st, link_free, (rq_dl, rq_src, rq_ok),
-            (vc_s, vc_end, vc_dl, vc_src, vc_ok), stats)
+        if capture:
+            pd_run.append(hp_ok)
+            pd_fail.append(hp_fail)
+            pd_preempt.append(preempt)
+            pd_lp.append(lp_placed_d)
+    new = (st, link_free, (rq_dl, rq_src, rq_ok),
+           (vc_s, vc_end, vc_dl, vc_src, vc_ok), stats)
+    if not capture:
+        return new, None
+    frame = _telemetry.capture_tick(
+        st, link_free, rq_ok, stats0, stats, base, bws, p.nominal_bw_bps,
+        torch.stack(pd_run, 1), torch.stack(pd_fail, 1),
+        torch.stack(pd_preempt, 1), torch.stack(pd_lp, 1),
+    )
+    return new, frame
 
 
 def _check_tick(carry) -> None:
@@ -400,24 +440,38 @@ def _check_tick(carry) -> None:
     )
 
 
+def _tree_map(fn, *trees):
+    """``fn`` over the tensor leaves of equally nested carries."""
+    t = trees[0]
+    if isinstance(t, torch.Tensor):
+        return fn(*trees)
+    out = [_tree_map(fn, *xs) for xs in zip(*trees)]
+    return type(t)(*out) if hasattr(t, "_fields") else tuple(out)
+
+
 def fleet_run(fleet: FleetState, values, bw_scale, *, params: FleetParams):
     """Advance a whole fleet over ``values`` ([F, B, Dev] workload) in
     ``segment_frames``-tick segments; ``bw_scale`` is [F, B] (or
     broadcasts to it). Runs on the device of the fleet's tensors and
-    returns ``(state, stats)``. The input ``fleet`` is left untouched: the
-    engine runs on a copy, which the CUDA kernel then updates in place.
-    ``REPRO_SANITIZE=1`` checks each segment's input state and every tick's
-    windows, victim cache and link (``analysis/sanitize.py``), raising
-    ``SanitizeError`` on a trip; the results and launches are the same
-    either way.
+    returns ``(state, stats)`` — or ``(state, stats, telemetry_record)``
+    when ``params.telemetry`` is on (``obs/telemetry.py``; state and stats
+    are bit-identical either way). The input ``fleet`` is left untouched:
+    the engine runs on a copy, which the CUDA kernel then updates in place.
+
+    With ``params.mesh_shards >= 1`` the batch is split across
+    ``fleet/mesh.py``'s devices: B is padded to a multiple of the shard
+    count with no-op replicas (no frames, bandwidth scale 1, state tiled
+    from existing rows), each shard advances on its own device, the
+    shards taking turns tick by tick, and the outputs are gathered on the
+    fleet's device with the padding trimmed; results are bit-identical
+    to the unsharded engine. ``REPRO_SANITIZE=1`` checks each segment's
+    input state and every tick's windows, victim cache and link
+    (``analysis/sanitize.py``), raising ``SanitizeError`` on a trip; the
+    results and launches are the same either way. Each segment runs in
+    ``obs/profile.py``'s ``span("fleet/segment")``, the whole loop in
+    ``maybe_torch_trace()``.
     """
     p = params
-    if p.mesh_shards >= 1:
-        raise NotImplementedError(
-            "mesh_shards >= 1: the sharded fleet is not ported yet")
-    if p.telemetry:
-        raise NotImplementedError(
-            "telemetry=True: in-loop telemetry is not ported yet")
     device = fleet.link_free.device
     B = fleet.sched.win_t1.shape[0]
     n_dev = p.n_devices
@@ -432,32 +486,92 @@ def fleet_run(fleet: FleetState, values, bw_scale, *, params: FleetParams):
             f"fleet re-queue buffer {tuple(fleet.rq_valid.shape)} != (B={B}, "
             f"requeue_slots={R}); build the fleet with matching "
             f"requeue_slots")
+    if p.telemetry_every < 1:
+        raise ValueError("telemetry_every must be >= 1")
     bw_scale = torch.as_tensor(bw_scale).to(device, torch.float32)
     bw_scale = bw_scale.expand(F, B)
     S = F if p.segment_frames <= 0 else min(p.segment_frames, F)
-    clone = lambda xs: tuple(x.clone() for x in xs)
-    carry = (
-        SchedState(*clone(fleet.sched)), fleet.link_free.clone(),
-        clone((fleet.rq_deadline, fleet.rq_src, fleet.rq_valid)),
-        clone((fleet.vc_start, fleet.vc_end, fleet.vc_deadline,
-               fleet.vc_src, fleet.vc_valid)),
-        init_stats(B, device=device),
-    )
+    every = p.telemetry_every
+    if p.telemetry and every > 1:
+        # segments a multiple of the stride, as the reference's
+        S = max(every, S - S % every)
+    devices = ([device] if p.mesh_shards < 1
+               else _mesh.fleet_devices(p.mesh_shards, device))
+    n_shards = len(devices)
+    state = (fleet.sched, fleet.link_free,
+             (fleet.rq_deadline, fleet.rq_src, fleet.rq_valid),
+             (fleet.vc_start, fleet.vc_end, fleet.vc_deadline, fleet.vc_src,
+              fleet.vc_valid))
+    if n_shards == 1:
+        carries = [(*_tree_map(torch.clone, state),
+                    init_stats(B, device=device))]
+        work = [(values, bw_scale)]
+    else:
+        pad_b = _mesh.shard_pad(B, n_shards)
+        if pad_b:
+            # padded replicas release no frames (-1), so they advance as
+            # no-ops; their state tiles existing rows (any valid state)
+            values = torch.cat([values, torch.full(
+                (F, pad_b, n_dev), -1, dtype=torch.int32, device=device)], 1)
+            bw_scale = torch.cat([bw_scale, torch.ones(
+                (F, pad_b), dtype=torch.float32, device=device)], 1)
+        per = (B + pad_b) // n_shards
+        carries, work = [], []
+        for i, dev in enumerate(devices):
+            rows = torch.arange(i * per, (i + 1) * per, device=device) % B
+            carries.append((
+                *_tree_map(lambda x: x.index_select(0, rows).to(dev), state),
+                init_stats(per, device=dev)))
+            cols = slice(i * per, (i + 1) * per)
+            work.append((values[:, cols].to(dev), bw_scale[:, cols].to(dev)))
     sanitize = _sanitize.enabled()
-    for f0 in range(0, F, max(S, 1)):
-        if sanitize:
-            _sanitize.check_sched_state(carry[0], "fleet segment input")
-        for f in range(f0, min(f0 + S, F)):
-            carry = _frame_step(carry, f, values[f], bw_scale[f], p)
-            if sanitize:
-                _check_tick(carry)
+    segments = []
+    with _profile.maybe_torch_trace():
+        for f0 in range(0, F, max(S, 1)):
+            with _profile.span("fleet/segment"):
+                rows_kept = [[] for _ in carries]
+                if sanitize:
+                    for carry in carries:
+                        _sanitize.check_sched_state(carry[0],
+                                                    "fleet segment input")
+                for f in range(f0, min(f0 + S, F)):
+                    capture = p.telemetry and f % every == 0
+                    for i, (v, bw) in enumerate(work):
+                        carries[i], frame = _frame_step(
+                            carries[i], f, v[f], bw[f], p, capture)
+                        if sanitize:
+                            _check_tick(carries[i])
+                        if capture:
+                            rows_kept[i].append(frame)
+                if p.telemetry:
+                    # the segment's rows stay on the device until the end
+                    segments.append([_telemetry.stack_frames(r)
+                                     for r in rows_kept])
+    if n_shards == 1:
+        carry = carries[0]
+    else:
+        carry = _tree_map(
+            lambda *xs: torch.cat([x.to(device) for x in xs])[:B], *carries)
     sched, link_free, rq, vc, stats = carry
     out = FleetState(
-        sched=sched, link_free=link_free,
+        sched=SchedState(*sched), link_free=link_free,
         now=torch.full((B,), F * FRAME_PERIOD, dtype=torch.float32,
                        device=device),
         rq_deadline=rq[0], rq_src=rq[1], rq_valid=rq[2],
         vc_start=vc[0], vc_end=vc[1], vc_deadline=vc[2], vc_src=vc[3],
         vc_valid=vc[4],
     )
-    return out, stats
+    if not p.telemetry:
+        return out, stats
+    with _profile.span("fleet/telemetry_host_transfer"):
+        host = [
+            _telemetry.TelemetryFrame(*(
+                np.concatenate(xs, axis=1) for xs in zip(*(
+                    _telemetry.frame_to_numpy(fr) for fr in shard_frames))))
+            for shard_frames in segments
+        ]
+        record = _telemetry.assemble(
+            host, n_frames=F, every=every, nominal_bw_bps=p.nominal_bw_bps,
+            n_replicas=B,
+        )
+    return out, stats, record

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core.scheduler import RASScheduler
+from repro_torch.core.tasks import ALL_CONFIGS, DEVICE_CORES
 from repro_torch.core.tensor_state import SchedState, export_state
 
 
@@ -93,3 +94,12 @@ def make_fleet(batch: int, n_devices: int = 4, bandwidth_bps: float = 20e6,
         vc_src=zeros((batch, n_devices), torch.int32),
         vc_valid=zeros((batch, n_devices), torch.bool),
     )
+
+
+def fleet_shape(fs: FleetState) -> tuple[int, int, int, int, int]:
+    """(B, Dev, CFG, T, W) of a fleet."""
+    return tuple(fs.sched.win_t1.shape)
+
+
+def track_counts() -> dict[str, int]:
+    return {c.name: DEVICE_CORES // c.cores for c in ALL_CONFIGS}

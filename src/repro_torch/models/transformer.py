@@ -46,7 +46,7 @@ from repro_torch.models.ssm import (
     mamba2_forward,
 )
 
-_LATER = "ROADMAP.md Next item 8 (MoE, MLA and encoder-decoder families)"
+_LATER = "ROADMAP.md queue 1 item 1 (MoE, MLA and encoder-decoder families)"
 
 
 def check_supported(cfg: ModelConfig) -> None:

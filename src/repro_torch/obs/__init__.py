@@ -1,11 +1,48 @@
-"""Observability of the port: the serial DES's event log.
+"""Observability subsystem: in-loop fleet telemetry, serial-DES event
+logs, Chrome-trace/Perfetto exporters, and host-side phase profiling.
 
-Counterpart of ``repro/obs``, of which only ``events.py`` (a copy) is
-here so far; the fleet telemetry, its exporters and the phase profiler
-are still to port. Nothing here may import ``sim/engine.py`` back at
-module scope, since the engine imports this package.
+Counterpart of ``repro/obs``: ``events.py`` and ``export.py`` are copies,
+``telemetry.py`` captures the reference's series with torch ops on the
+fleet's device, and ``profile.py``'s device hook is ``maybe_torch_trace``
+(a ``torch.profiler`` trace under ``REPRO_PROFILE_DIR``).
+
+Deliberately dependency-light at import time: this package is imported
+by ``fleet/engine.py`` and ``sim/engine.py``, so nothing here may import
+them back at module scope (the CLI imports the engines lazily).
 """
 
 from repro_torch.obs.events import KINDS, Event, EventLog
+from repro_torch.obs.export import (
+    fleet_trace_events,
+    load_trace,
+    sim_trace_events,
+    validate_trace,
+    write_chrome_trace,
+)
+from repro_torch.obs.profile import PhaseTimer, maybe_torch_trace, span
+from repro_torch.obs.telemetry import (
+    TelemetryFrame,
+    TelemetryRecord,
+    assemble,
+    capture_tick,
+    load_record,
+)
 
-__all__ = ["Event", "EventLog", "KINDS"]
+__all__ = [
+    "Event",
+    "EventLog",
+    "KINDS",
+    "PhaseTimer",
+    "TelemetryFrame",
+    "TelemetryRecord",
+    "assemble",
+    "capture_tick",
+    "fleet_trace_events",
+    "load_record",
+    "load_trace",
+    "maybe_torch_trace",
+    "sim_trace_events",
+    "span",
+    "validate_trace",
+    "write_chrome_trace",
+]

@@ -205,7 +205,14 @@ def test_fleet_runs_on_the_device_of_its_tensors():
 
 @pytest.mark.parametrize("change", [{"mesh_shards": 1}, {"telemetry": True}])
 def test_unported_options_raise(change):
+    """The two options earlier slices refused (the batch split and the
+    telemetry) now run, and leave the results as they were; their own
+    tests are ``test_torch_fleet_sharded.py`` and ``test_torch_obs.py``."""
     p = dataclasses.replace(_params(FleetParams, 4), **change)
     values, bw = _population(2, seed=1)
-    with pytest.raises(NotImplementedError):
-        fleet_run(make_fleet(B, device="cpu"), values, bw, params=p)
+    want = fleet_run(make_fleet(B, device="cpu"), values, bw,
+                     params=_params(FleetParams, 4))
+    got = fleet_run(make_fleet(B, device="cpu"), values, bw, params=p)
+    assert len(got) == 2 + bool(change.get("telemetry"))
+    _assert_same(_leaves(fleet_to_numpy(want[0]), stats_to_numpy(want[1])),
+                 _leaves(fleet_to_numpy(got[0]), stats_to_numpy(got[1])))
