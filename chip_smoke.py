@@ -19,12 +19,13 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    output must be bit-identical;
    ``flash_attention`` on seeded N(0,1) inputs at the waste pipeline's
    shapes (S 173 and 233, bf16 and f32), a qwen2.5-3b and a gemma2-2b local
-   and global layer, a zamba2-7b layer (hd 112), a ragged small case and a
-   non-causal one — within 2e-5 (f32) and 1.6e-2 (bf16, one ulp at
-   |out| < 4), every bf16 case on the tensor-core (wgmma) kernel and every
+   and global layer, a zamba2-7b layer (hd 112), a moonshot-v1-16b-a3b
+   layer, a ragged small case and a non-causal one — within 2e-5 (f32)
+   and 1.6e-2 (bf16, one ulp at |out| < 4), every bf16 case on the tensor-core (wgmma) kernel and every
    f32 case on the SIMT one; ``ssm_scan``, ``ssd_scan`` and ``flash_decode``
    (a split pass and a combine pass a call) at the layer
-   shapes of falcon-mamba-7b and zamba2-7b and at ragged small shapes —
+   shapes of falcon-mamba-7b and zamba2-7b (decode also moonshot-v1-16b-a3b
+   at batch 4 against a 4096 cache) and at ragged small shapes —
    scans in f32 within 1e-4 of the largest |y|, bf16 outputs within one
    bf16 ulp of the largest |y| (the 1.6e-2 of attention below 4);
    ``window_query`` and ``window_query_batched`` bit for bit at the
@@ -49,7 +50,13 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    route (the config is bf16); then one engine
    built twice from the same weights, on the kernel and on the plain
    attention, must give equal serving results and logits within 2e-2 (bf16)
-   and 1e-4 (f32) of the largest logit;
+   and 1e-4 (f32) of the largest logit; then ``serve`` of deepseek-v2-236b,
+   kimi-k2-1t-a32b, moonshot-v1-16b-a3b and seamless-m4t-medium, reduced as
+   ``serve`` reduces them (f32), through RAS: ``flash_attention`` once per
+   causal self-attention layer of every forward (none for deepseek's MLA;
+   seamless's encoder and cross-attention, over an empty memory, none),
+   and each engine built twice, on the kernel and on the plain attention,
+   with equal results;
 7. hybrid path: the full zamba2-7b config (81 Mamba-2 blocks, 13 calls of
    the shared attention block, bf16, random weights from a seed): one
    ``Model.forward`` of 1 x 4096 tokens, which must launch ``ssd_scan`` 81
@@ -60,10 +67,27 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
 8. ssm path: the full falcon-mamba-7b config (64 Mamba-1 blocks): one
    forward of 1 x 4096 tokens with 64 ``ssm_scan`` launches, then 8 decode
    steps at batch 128;
-9. kernel path vs plain path at model level, full width and cut depth
-   (zamba2 13 blocks, falcon-mamba 4, S 512; 4 zamba2 decode steps against
-   a 4096 cache): logits within 2e-2 of the largest logit (bf16);
-10. timing: each kernel's time per launch at its shapes (CUDA events) beside
+9. MoE path: the full moonshot-v1-16b-a3b config (48 layers, 28.4 B
+   parameters, bf16, drawn on the card): one forward of 1 x 4096 tokens
+   with 48 ``flash_attention`` launches, all wgmma, and a finite aux loss;
+   8 decode steps at batch 4 against 4096-long caches, 48 ``flash_decode``
+   calls a step; peak memory against the card's;
+10. MLA path: deepseek-v2-236b at full width cut to 2 layers (1 dense + 1
+   MoE of 160 experts): the same forward and 8 decode steps at batch 4
+   against a 32768-long latent cache, with no attention-kernel launch
+   (MLA is plain torch, as in the reference);
+11. encoder-decoder path: the full seamless-m4t-medium (12 + 12 layers):
+   a forward of 1 x 4096 tokens over 1024 media frames with 12
+   ``flash_attention`` launches (the decoder; the encoder and
+   cross-attention launch none), then 8 decode steps at batch 4 against
+   32768-long caches and an 8192-frame memory, 12 ``flash_decode`` a step;
+12. kernel path vs plain path at model level, full width and cut depth
+   (zamba2 13 blocks, falcon-mamba 4, seamless 4 + 4, S 512; 4 zamba2 and
+   seamless decode steps against a 4096 cache): logits within 2e-2 of the
+   largest logit (bf16); moonshot at 3 layers in f32: every MoE layer
+   routes every token alike on both paths, logits within 1e-4 of the
+   largest;
+13. timing: each kernel's time per launch at its shapes (CUDA events) beside
    its bound, the plain version's time and, where one PyTorch call computes
    the same function, that call's time (a yardstick the port never calls),
    with each attention, decode and scan case's TFLOP/s or GB/s and share of
@@ -79,15 +103,15 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    one call of the fleet's HP query, split into the wrapper's parts; the
    racy fixture's device time a launch (the profiler's device events); and
    where each path's time goes (``torch.profiler``);
-11. single controller: ``hp_place`` on each device and ``lp_place`` of 4
+14. single controller: ``hp_place`` on each device and ``lp_place`` of 4
    tasks (lp2, lp4) from the same loaded scheduler on the card and on the
    host give the same outputs and state bit for bit; both timed;
-12. launch-checker fixture: ``racy_sum`` on the card, whose two blocks
+15. launch-checker fixture: ``racy_sum`` on the card, whose two blocks
    write the same outputs: each output must be one of the two writers'
    values and the whole must differ from a correct reduction; the checker
    must flag its declared launch as a write race and find the production
    registry clean;
-13. calibration: the serial DES (``run_experiment``, host Python) gives
+16. calibration: the serial DES (``run_experiment``, host Python) gives
    RAS, WPS and HYB frame-completion rates on weighted2 and weighted4 at
    congestion 0 and 0.3 (each run timed); then the committed grid of
    ``results/calib/baseline.json`` (5 paper traces x congestion 0 and 0.3
@@ -96,26 +120,26 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    kernel 4 times a tick, the report must pass the committed bands and
    equal, key by key, the plain path's (``placement_backend="ref"``,
    which launches neither); each fleet point timed alone, one profiled;
-14. sanitize: the fleet path's 8192 replicas for 10 ticks with
+17. sanitize: the fleet path's 8192 replicas for 10 ticks with
    ``REPRO_SANITIZE`` off, on, on, off must be bit-identical with the same
    launches (ms a tick each); one calibration point under the flag must
    pass the committed bands; a fleet with one corrupted window must raise
    ``SanitizeError`` naming the window order, and the run goes on;
-15. telemetry: the fleet path's 8192 replicas for 95 ticks with
+18. telemetry: the fleet path's 8192 replicas for 95 ticks with
    ``telemetry`` off, on, on, off (ms a tick each), bit-identical to the
    main fleet run with 21 + 4 launches a tick; the record's 17 series
    equal bit for bit to the plain path's and to a stride-5 record's
    rows, the ``*_d`` series summing to the final counters, the ``.npz``
    round trip and the Chrome trace of replicas 0 and 8191 valid;
-16. profile: a ``PhaseTimer`` counts one ``fleet/segment`` span a
+19. profile: a ``PhaseTimer`` counts one ``fleet/segment`` span a
    segment; with ``REPRO_PROFILE_DIR`` set a 5-tick run writes one
    ``torch.profiler`` trace naming ``fused_place_kernel`` and
    ``window_query_kernel``; under ``profile_device`` it still runs and
    writes nothing;
-17. obs CLI: ``repro_torch.obs.cli.main`` records B 8 x 95 frames of
+20. obs CLI: ``repro_torch.obs.cli.main`` records B 8 x 95 frames of
    weighted2 at 0.3 on the card (equal bit for bit to the host's) and
    the serial DES, exports and summarises both; the traces valid;
-18. sharded: ``run_sweep(mesh_shards=1)`` of the fleet cell, in one
+21. sharded: ``run_sweep(mesh_shards=1)`` of the fleet cell, in one
    batch and in batches of 3000 (a tail of owners -1), within 1e-5 of
    the unsharded sweep with residual 0 and 21 + 4 launches a tick;
    ``mesh_shards=2`` raises on one card; the per-cell reduction's time
@@ -168,6 +192,8 @@ ATTN_CASES = [
     ("gemma2-2b-local", 1, 8, 4, 8192, 256, torch.bfloat16, True, 4096, 50.0),
     ("gemma2-2b-global", 1, 8, 4, 8192, 256, torch.bfloat16, True, 0, 50.0),
     ("zamba2-7b", 1, 32, 32, 4096, 112, torch.bfloat16, True, 0, 0.0),
+    ("moonshot-v1-16b-a3b", 1, 16, 16, 4096, 128, torch.bfloat16, True, 0,
+     0.0),
     ("ragged-small", 2, 4, 2, 37, 32, torch.float32, True, 8, 20.0),
     ("bidirectional", 1, 4, 2, 300, 128, torch.float32, False, 0, 0.0),
 ]
@@ -193,19 +219,30 @@ SSD_CASES = [
     ("ragged-small-bf16", 2, 77, 3, 64, 64, torch.bfloat16),
 ]
 #: (name, B, H, K, S, hd, dtype, window, softcap): decode attention; pos
-#: is near the end of the cache for zamba2, anywhere (0 included) else.
-#: The f32 case at zamba2's shape resolves single keys (see decode_tol).
+#: is near the end of the cache for zamba2 and moonshot (as their decode
+#: paths put it), anywhere (0 included) else. The f32 case at zamba2's
+#: shape resolves single keys (see decode_tol).
 DECODE_CASES = [
     ("zamba2-7b", 4, 32, 32, 32768, 112, torch.bfloat16, 0, 0.0),
     ("zamba2-7b-f32", 4, 32, 32, 32768, 112, torch.float32, 0, 0.0),
     ("gqa-window-softcap", 3, 8, 2, 1000, 64, torch.float32, 100, 30.0),
     ("gqa-bf16-ragged", 2, 16, 2, 4097, 128, torch.bfloat16, 0, 0.0),
+    ("moonshot-v1-16b-a3b", 4, 16, 16, 4096, 128, torch.bfloat16, 0, 0.0),
 ]
+#: decode cases timed beside their plain version and SDPA (the first is
+#: the kernels line's main case)
+DECODE_TIMED = ("zamba2-7b", "moonshot-v1-16b-a3b")
 SEQ = 4096                        # prefill tokens of the model paths
 DECODE_STEPS = 8
 HYBRID_DECODE = (4, 32768)        # batch, cache length
 SSM_DECODE_BATCH = 128
+MOE_DECODE = (4, 4096)            # moonshot's batch, cache length (6.4 GB)
+MLA_LAYERS = 2                    # deepseek-v2 cut: 1 dense + 1 MoE layer
+MEDIA_FRAMES = 1024               # seamless's encoder frames a forward
 MODEL_TOL = 2e-2                  # kernel vs plain logits, of max |logit|
+MOE_F32_TOL = 1e-4                # the same for the f32 MoE model
+NEW_SERVE_ARCHS = ("deepseek-v2-236b", "kimi-k2-1t-a32b",
+                   "moonshot-v1-16b-a3b", "seamless-m4t-medium")
 BASELINE = ROOT / "results" / "calib" / "baseline.json"
 SERIAL_SCHEDULERS = ("ras", "wps", "hyb")
 SERIAL_TRACES = ("weighted2", "weighted4")
@@ -511,7 +548,7 @@ def decode_inputs(i, case, dev):
     q = torch.randn((B, H, hd), generator=g, device=dev).to(dt)
     k = torch.randn((B, S, K, hd), generator=g, device=dev, dtype=dt)
     v = torch.randn((B, S, K, hd), generator=g, device=dev, dtype=dt)
-    if name.startswith("zamba2-7b"):
+    if name.startswith(("zamba2-7b", "moonshot")):
         pos = S - 8 + torch.randint(0, 8, (B,), generator=g, device=dev)
     else:
         pos = torch.randint(0, S, (B,), generator=g, device=dev)
@@ -662,7 +699,7 @@ def check_fused_place(dev) -> float:
 
 
 def time_fused_place(dev, case=None) -> dict:
-    """Phase 10 for ``fused_place`` at the fleet's B (or on ``case``): its
+    """Phase 13 for ``fused_place`` at the fleet's B (or on ``case``): its
     device time a launch (the profiler's device events) cold, with a 64 MB
     write between the reset of the windows and the launch that evicts them
     from L2 (``ms``, the time held to the HBM bound), and warm, right after
@@ -859,18 +896,23 @@ def timed(fn):
 
 
 def model_path(arch: str, dev, want_fwd: dict, want_step: dict,
-               decode_batch: int, cache_len: int, seed: int) -> dict:
-    """Phases 7 and 8: the full config of ``arch`` (bf16, random weights
-    from ``seed``, drawn on the card): one forward of 1 x SEQ tokens, then
+               decode_batch: int, cache_len: int, seed: int, *,
+               cfg=None, phase: str | None = None,
+               reduced: tuple = ()) -> dict:
+    """Phases 7 to 11: the config of ``arch`` (full unless ``cfg`` cuts it;
+    bf16, random weights from ``seed``, drawn on the card): one forward of
+    1 x SEQ tokens (the encoder-decoder's over MEDIA_FRAMES frames), then
     DECODE_STEPS decode steps from a state of ``init_decode_state(
-    decode_batch, cache_len)`` whose caches are filled from a seed and whose
-    pos is ``cache_len - DECODE_STEPS``. Checks each kernel's launches
-    against ``want_fwd`` (a forward) and ``want_step`` (a decode step), and
-    the logits' shape and finiteness. Returns the counts."""
+    decode_batch, cache_len)`` whose caches (and memory) are filled from a
+    seed and whose pos is ``cache_len - DECODE_STEPS``. Checks each
+    kernel's launches against ``want_fwd`` (a forward) and ``want_step`` (a
+    decode step), the logits' shape and finiteness, the aux loss's
+    finiteness and the peak memory against the card's. Returns the
+    counts."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import Model
 
-    cfg = get_config(arch)
+    cfg = cfg or get_config(arch)
     torch.cuda.reset_peak_memory_stats()
     model, build_s = timed(lambda: Model(cfg, seed=seed, device=dev,
                                          init_device=dev))
@@ -879,14 +921,19 @@ def model_path(arch: str, dev, want_fwd: dict, want_step: dict,
     tokens = torch.randint(0, cfg.vocab_size, (1, SEQ), generator=g,
                            device=dev)
     batch = {"tokens": tokens}
+    if cfg.is_encoder_decoder:
+        batch["media"] = torch.randn((1, MEDIA_FRAMES, cfg.d_model),
+                                     generator=g, device=dev)
     with torch.no_grad():
-        model({"tokens": tokens[:, :cfg.ssm_chunk]})     # warm-up
+        model({k: v[:, :cfg.ssm_chunk] for k, v in batch.items()})  # warm
         reset_counts()
-        (logits, _), fwd_s = timed(lambda: model(batch))
+        (logits, aux), fwd_s = timed(lambda: model(batch))
     fwd_counts = counts()
     check(tuple(logits.shape) == (1, SEQ, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"{arch}: bad forward logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(aux)) and (float(aux) > 0) == cfg.uses_moe,
+          f"{arch}: aux loss {float(aux)}")
     for name, n in want_fwd.items():
         check(fwd_counts[name] == n, f"{arch}: {name} launched "
                                      f"{fwd_counts[name]} times a forward, "
@@ -900,7 +947,7 @@ def model_path(arch: str, dev, want_fwd: dict, want_step: dict,
     fwd_profile = profile_device(forward, f"{arch} forward")
 
     state = model.init_decode_state(decode_batch, cache_len)
-    for key in ("k", "v"):
+    for key in ("k", "v", "ckv", "memory"):
         if key in state:
             state[key].normal_(generator=g)
     state["pos"].fill_(cache_len - DECODE_STEPS)
@@ -925,58 +972,105 @@ def model_path(arch: str, dev, want_fwd: dict, want_step: dict,
         check(step_counts[name] == n * DECODE_STEPS,
               f"{arch}: {name} launched {step_counts[name]} times in "
               f"{DECODE_STEPS} decode steps, not {n} a step")
-    out = {"phase": f"{cfg.arch_type}_path", "arch": arch,
+    peak = torch.cuda.max_memory_allocated()
+    card = torch.cuda.get_device_properties(dev).total_memory
+    out = {"phase": phase or f"{cfg.arch_type}_path", "arch": arch,
            "params": n_params, "layers": cfg.n_layers,
+           "encoder_layers": cfg.n_encoder_layers,
            "d_model": cfg.d_model, "dtype": cfg.dtype,
            "build_s": build_s, "forward_tokens": [1, SEQ],
-           "forward_ms": 1e3 * fwd_s, "forward_launches": fwd_counts,
+           "forward_media_frames": batch["media"].shape[1]
+           if "media" in batch else 0,
+           "forward_ms": 1e3 * fwd_s, "forward_aux": float(aux),
+           "forward_launches": fwd_counts,
            "decode_batch": decode_batch, "decode_cache_len": cache_len,
+           "decode_state_gb": sum(v.numel() * v.element_size()
+                                  for v in state.values()) / 1e9,
            "decode_step_ms": [1e3 * x for x in step_s],
            "decode_launches": step_counts,
-           "max_memory_allocated_gb":
-               torch.cuda.max_memory_allocated() / 1e9,
+           "max_memory_allocated_gb": peak / 1e9,
+           "device_memory_gb": card / 1e9,
            "reduced": [f"forward B 1 x S {SEQ} (source shape "
                        "PREFILL_32K: B 32 x S 32768), for the time limit",
                        f"decode batch {decode_batch} (source DECODE_32K: "
                        "batch 128)" if decode_batch != 128 else
-                       "decode at DECODE_32K's batch 128"]}
+                       "decode at DECODE_32K's batch 128", *reduced]}
     emit(out)
     emit({**fwd_profile, "of": f"{arch} forward, 1 x {SEQ}"})
     emit({**step_profile, "of": f"{arch} decode step, batch {decode_batch}"})
-    del model, state
+    check(peak < card, f"{arch}: peak memory {peak} of the card's {card}")
+    del model, state, batch
     gc.collect()
     torch.cuda.empty_cache()
     return {"forward": fwd_counts, "decode": step_counts}
 
 
+def capture_routing(model) -> list:
+    """Forward hooks on every MoE layer of ``model``: each call appends the
+    layer's expert indices (``route`` of its input, as ``moe_ffn`` routes
+    it) and the smallest gap between a token's k-th and (k+1)-th router
+    probability. Returns the list the hooks fill; the hooks stay for the
+    model's life."""
+    from repro_torch.models.moe import route
+
+    seen = []
+
+    def hook(mod, args, out):
+        x, k = args[0], args[1]
+        probs, _, idx = route(x.reshape(-1, x.shape[-1]), mod.router, k)
+        top = torch.sort(probs, dim=-1, descending=True).values
+        seen.append((idx, (top[:, k - 1] - top[:, k]).min().item()))
+
+    for block in model.layers:
+        if block.is_moe:
+            block.moe.register_forward_hook(hook)
+    return seen
+
+
 def model_plain_paths(dev):
-    """Phase 9: each model built twice from one seed, on the kernels and on
-    their plain versions, at full width and cut depth; logits within
-    MODEL_TOL of the largest logit."""
+    """Phase 12: each model built twice from one seed, on the kernels and
+    on their plain versions, at full width and cut depth; logits within
+    MODEL_TOL of the largest logit (bf16). The MoE model runs in f32: in
+    bf16 the attention kernel and its plain version round differently, and
+    a near-tie between a token's k-th and (k+1)-th expert can then route it
+    elsewhere. There every MoE layer must route every token alike on both
+    paths (``capture_routing``) and the logits agree within MOE_F32_TOL of
+    the largest."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import Model
 
     rows = []
-    for arch, n_layers in (("zamba2-7b", 13), ("falcon-mamba-7b", 4)):
-        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    for arch, cut, tol in (
+            ("zamba2-7b", dict(n_layers=13), MODEL_TOL),
+            ("falcon-mamba-7b", dict(n_layers=4), MODEL_TOL),
+            ("moonshot-v1-16b-a3b", dict(n_layers=3, dtype="float32"),
+             MOE_F32_TOL),
+            ("seamless-m4t-medium", dict(n_layers=4, n_encoder_layers=4),
+             MODEL_TOL)):
+        cfg = dataclasses.replace(get_config(arch), **cut)
         g = torch.Generator(dev).manual_seed(11)
-        tokens = torch.randint(0, cfg.vocab_size, (2, 512), generator=g,
-                               device=dev)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 512),
+                                         generator=g, device=dev)}
+        if cfg.is_encoder_decoder:
+            batch["media"] = torch.randn((2, 128, cfg.d_model), generator=g,
+                                         device=dev)
         step_tokens = torch.randint(0, cfg.vocab_size, (4, 2), generator=g,
                                     device=dev)
-        logits, secs = {}, {}
+        logits, secs, routing = {}, {}, {}
         for backend in ("auto", "ref"):
             model = Model(cfg, seed=7, device=dev, backend=backend,
                           init_device=dev)
+            if cfg.uses_moe:
+                routing[backend] = capture_routing(model)
             with torch.no_grad():
-                (fwd, _), secs[backend] = timed(
-                    lambda: model({"tokens": tokens}))
+                (fwd, _), secs[backend] = timed(lambda: model(batch))
                 out = [fwd.float()]
-                if cfg.arch_type == "hybrid":
+                if cfg.arch_type in ("hybrid", "audio"):
                     state = model.init_decode_state(2, 4096)
                     sg = torch.Generator(dev).manual_seed(12)
-                    state["k"].normal_(generator=sg)
-                    state["v"].normal_(generator=sg)
+                    for key in ("k", "v", "memory"):
+                        if key in state:
+                            state[key].normal_(generator=sg)
                     state["pos"].fill_(4096 - 4)
                     for tk in step_tokens:
                         lg, state = model.decode_step(state, tk)
@@ -988,20 +1082,166 @@ def model_plain_paths(dev):
             torch.cuda.empty_cache()
         rel = [(a - b).abs().max().item() / b.abs().max().item()
                for a, b in zip(logits["auto"], logits["ref"])]
-        row = {"phase": "model_plain_path", "arch": arch,
-               "layers": n_layers, "tokens": [2, 512],
+        row = {"phase": "model_plain_path", "arch": arch, "dtype": cfg.dtype,
+               "layers": cfg.n_layers, "tokens": [2, 512],
                "decode_steps": len(rel) - 1,
-               "logits_err_over_max": rel, "tolerance": MODEL_TOL,
+               "logits_err_over_max": rel, "tolerance": tol,
                "kernel_path_s": secs["auto"], "plain_path_s": secs["ref"]}
+        if cfg.is_encoder_decoder:
+            row.update(encoder_layers=cfg.n_encoder_layers,
+                       media_frames=batch["media"].shape[1])
+        if routing:
+            same = [torch.equal(a, b) for (a, _), (b, _) in
+                    zip(routing["auto"], routing["ref"])]
+            row.update(moe_layers_routed=len(same),
+                       routing_equal=all(same),
+                       smallest_kth_gap=min(gap for _, gap in
+                                            routing["auto"]))
         emit(row)
-        check(max(rel) <= MODEL_TOL,
+        if routing:
+            check(len(same) == cfg.n_layers - cfg.first_dense_layers
+                  and len(routing["ref"]) == len(same) and all(same),
+                  f"{arch}: the kernel and plain paths route differently "
+                  f"in MoE layers {[i for i, x in enumerate(same) if not x]}")
+        check(max(rel) <= tol,
               f"{arch}: kernel and plain logits differ: {rel}")
         rows.append(row)
     return rows
 
 
+def moe_mla_encdec_paths(dev) -> dict:
+    """Phases 9 to 11: the full moonshot-v1-16b-a3b, deepseek-v2-236b at
+    full width and cut depth, and the full seamless-m4t-medium through
+    ``model_path``, each with the kernel launches its attention must make.
+    Returns each path's launches for the kernels line."""
+    from repro_torch.configs import get_config
+
+    mcfg = get_config("moonshot-v1-16b-a3b")
+    by_path = {}
+    by_path["moonshot-v1-16b-a3b"] = model_path(
+        "moonshot-v1-16b-a3b", dev,
+        want_fwd={"flash_attention": mcfg.n_layers,
+                  "flash_attention_wgmma": mcfg.n_layers,
+                  "flash_attention_simt": 0, "flash_decode": 0},
+        want_step={"flash_decode": mcfg.n_layers,
+                   "flash_decode_split": mcfg.n_layers,
+                   "flash_decode_combine": mcfg.n_layers,
+                   "flash_attention": 0},
+        decode_batch=MOE_DECODE[0], cache_len=MOE_DECODE[1], seed=2,
+        phase="moe_path",
+        reduced=(f"decode cache {MOE_DECODE[1]} (source DECODE_32K: 32768; "
+                 f"batch 128 x 32768 would need a 1.65 TB cache)",))
+
+    dcfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                               n_layers=MLA_LAYERS)
+    no_attention_kernel = {"flash_attention": 0, "flash_decode": 0}
+    by_path["deepseek-v2-236b"] = model_path(
+        "deepseek-v2-236b", dev, want_fwd=no_attention_kernel,
+        want_step=no_attention_kernel, decode_batch=HYBRID_DECODE[0],
+        cache_len=HYBRID_DECODE[1], seed=3, cfg=dcfg, phase="mla_path",
+        reduced=(f"depth {MLA_LAYERS} of 60 layers (1 dense + 1 MoE of 160 "
+                 "experts); the full model is 471 GB of bf16",))
+
+    scfg = get_config("seamless-m4t-medium")
+    by_path["seamless-m4t-medium"] = model_path(
+        "seamless-m4t-medium", dev,
+        want_fwd={"flash_attention": scfg.n_layers,
+                  "flash_attention_wgmma": scfg.n_layers,
+                  "flash_decode": 0},
+        want_step={"flash_decode": scfg.n_layers,
+                   "flash_decode_split": scfg.n_layers,
+                   "flash_decode_combine": scfg.n_layers,
+                   "flash_attention": 0},
+        decode_batch=HYBRID_DECODE[0], cache_len=HYBRID_DECODE[1], seed=4,
+        phase="encdec_path",
+        reduced=(f"encoder over {MEDIA_FRAMES} media frames a forward; "
+                 f"decode memory {HYBRID_DECODE[1] // 4} frames",))
+    return by_path
+
+
+def serve_new_archs(dev) -> dict:
+    """Phase 6 for the MoE, MLA and encoder-decoder archs: ``serve`` of
+    each, reduced as ``serve`` reduces it (f32), through RAS for
+    SERVE_PERIODS periods; ``flash_attention`` must launch once per causal
+    self-attention layer of every forward (none for deepseek's MLA; the
+    encoder and cross-attention launch nothing), every one on the SIMT
+    route. Then one engine built twice from the same weights, on the
+    kernel and on the plain attention, must give equal serving results.
+    Returns each arch's launches for the kernels line."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.tasks import FRAME_PERIOD
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving import engine
+    from repro_torch.serving.engine import ServeResult, ServingEngine
+    from repro_torch.sim.traces import generate_trace
+
+    tr = generate_trace("weighted2", SERVE_PERIODS, 4, seed=0)
+    frames = [(d, int(tr.entries[f, d]), f * FRAME_PERIOD)
+              for f in range(SERVE_PERIODS) for d in range(4)
+              if tr.entries[f, d] >= 0]
+    fields = [f.name for f in dataclasses.fields(ServeResult)
+              if f.name != "logits_checksum"]
+    by_path = {}
+    for arch in NEW_SERVE_ARCHS:
+        cfg = reduced(get_config(arch))
+        per_forward = 0 if cfg.use_mla else cfg.n_layers
+        torch.cuda.synchronize()
+        reset_counts()
+        engine.forwards = 0
+        t0 = time.perf_counter()
+        out = serve(arch=arch, frames=SERVE_PERIODS, scheduler="ras",
+                    trace="weighted2", seed=0, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch, n_fwd = fa.launches, engine.forwards
+        emit({"phase": "serving_path", "entry": "serve", **out,
+              "reduced": ["reduced(config), as serve reduces every arch "
+                          "but the waste pipeline"],
+              "seconds": wall, "forward_passes": n_fwd,
+              "flash_attention_launches": n_launch,
+              "flash_attention_simt_launches": fa.launches_simt,
+              "flash_decode_launches": counts()["flash_decode"]})
+        check(n_fwd > 0 and n_launch == per_forward * n_fwd
+              and fa.launches_simt == n_launch,
+              f"{arch}: flash_attention launched {n_launch} times "
+              f"({fa.launches_simt} SIMT) for {n_fwd} forward passes of "
+              f"{per_forward} causal self-attention layers")
+        check(out["frames_submitted"] > 0
+              and 0.0 <= out["completion_rate"] <= 1.0,
+              f"serve({arch}) gave {out}")
+        by_path[f"serving {arch}"] = {"forwards": {
+            "flash_attention": n_launch}}
+
+        weights = Model(cfg, seed=0, device=dev).state_dict()
+        results, sums = {}, {}
+        for backend in ("kernel", "ref"):
+            model = Model(cfg, device=dev, backend=backend)
+            model.load_state_dict(weights)
+            eng = ServingEngine(cfg, scheduler="ras", seed=0, device=dev,
+                                model=model)
+            results[backend] = [eng.submit_frame(i, src, n, now=now)
+                                for i, (src, n, now) in enumerate(frames)]
+            sums[backend] = sum(r.logits_checksum for r in results[backend])
+        differing = sorted({f for a, b in zip(results["kernel"],
+                                              results["ref"])
+                            for f in fields if getattr(a, f) != getattr(b, f)})
+        emit({"phase": "serving_plain_attention", "arch": arch,
+              "frames": len(frames), "differing_fields": differing,
+              "completion_rate": {b: sum(r.completed for r in rs) / len(rs)
+                                  for b, rs in results.items()},
+              "logits_checksum": sums})
+        check(not differing,
+              f"{arch}: kernel and plain serving differ in {differing}")
+        del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path
+
+
 def time_new_kernels(dev, errs, decode_pos):
-    """Phase 10 for the SSM and hybrid paths' kernels, at their main
+    """Phase 13 for the SSM, hybrid and MoE paths' kernels, at their main
     shapes: ms a launch, the plain version's ms, the bound and, for
     flash_decode, SDPA's ms."""
     from repro_torch.kernels.flash_decode import flash_decode as fd
@@ -1034,6 +1274,7 @@ def time_new_kernels(dev, errs, decode_pos):
             rows[kernel]["bound_terms"] = ssm_terms(case)
         emit({"phase": "timing", "kernel": kernel, **rows[kernel]})
         del xs
+    rows["decode_cases"] = []
     for i, case in enumerate(DECODE_CASES):
         name, B, H, K, S, *_ = case
         q, k, v, pos = decode_inputs(i, case, dev)
@@ -1048,8 +1289,8 @@ def time_new_kernels(dev, errs, decode_pos):
                "gb_per_s": nbytes / ms / 1e6, "share_of_bound": bound_ms / ms,
                "n_split": fd.n_split(B, K, S),
                "chunk": fd.chunk_size(B, K, S)}
-        if i == 0:   # the main shape: its plain version and SDPA
-            lib = library_decode(q, k, v, pos)
+        if name in DECODE_TIMED:   # the model paths' shapes: the plain
+            lib = library_decode(q, k, v, pos)   # version and SDPA
             row.update({
                 "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v,
                                                                  pos)),
@@ -1059,7 +1300,9 @@ def time_new_kernels(dev, errs, decode_pos):
                                 "outside the timed call, GQA not expanded "
                                 "(G = 1)",
                 "max_abs_err": errs["flash_decode"]})
-            rows["flash_decode"] = row
+            if i == 0:
+                rows["flash_decode"] = row
+            rows["decode_cases"].append(row)
             del lib
         emit({"phase": "timing", "kernel": "flash_decode", **row})
         del q, k, v
@@ -1280,7 +1523,7 @@ def window_query_phase(dev):
 
 
 def time_window_query(dev, rows):
-    """Phase 10 for the window-query kernels, at every case: the kernel's
+    """Phase 13 for the window-query kernels, at every case: the kernel's
     device time a launch (the profiler's device events) cold, each launch
     after a 64 MB write that evicts L2 (``ms``, the time held to the byte
     bound), and warm, its inputs left in L2 by the launch before
@@ -1404,7 +1647,7 @@ def wq_host_split(dev, xs) -> dict:
 
 
 def single_controller_phase(dev):
-    """Phase 11: ``hp_place`` on every device and ``lp_place`` of 4 tasks
+    """Phase 14: ``hp_place`` on every device and ``lp_place`` of 4 tasks
     (lp2 and lp4) from one loaded scheduler, on the card and on the host:
     every output and state leaf bit for bit; ms a call on each."""
     from repro_torch.core.tensor_state import (
@@ -1445,7 +1688,7 @@ def single_controller_phase(dev):
 
 
 def fixture_phase(dev):
-    """Phase 12: the launch checker's racy fixture on the card, the
+    """Phase 15: the launch checker's racy fixture on the card, the
     checker's verdicts, and the fixture's timing. Returns its kernels-line
     row."""
     from repro_torch.analysis import launch_check
@@ -1516,7 +1759,7 @@ def flatten(d: dict, prefix: str = "") -> dict:
 
 
 def calibration_phase(dev):
-    """Phase 13: the serial DES's RAS / WPS / HYB frame-completion rates
+    """Phase 16: the serial DES's RAS / WPS / HYB frame-completion rates
     (host Python, each run timed); then the committed calibration grid
     (``baseline.json``'s ``generated_from``) through ``run_calibration`` on
     the card: 21 placement and 4 HP-query launches a tick at every point,
@@ -1679,7 +1922,7 @@ def differing_series(rec_a, rec_b, rows=None) -> list:
 
 
 def sanitize_phase(dev, values, bw, calib_report):
-    """Phase 14: ``REPRO_SANITIZE=1`` on the card. The main fleet's B_MAIN
+    """Phase 17: ``REPRO_SANITIZE=1`` on the card. The main fleet's B_MAIN
     replicas for ``SANITIZE_FRAMES`` ticks through the kernels, flag off,
     on, on, off: every run bit-identical to the first, with the same
     launches, each timed; one calibration point under the flag passes the
@@ -2399,10 +2642,11 @@ def main() -> None:
     check(max(rel_err["bf16"]) <= 2e-2,
           f"bf16 logits differ: {rel_err['bf16']}")
     check(max(rel_err["f32"]) <= 1e-4, f"f32 logits differ: {rel_err['f32']}")
-
-    # -- 7. the hybrid path: full zamba2-7b ----------------------------------
     launches_by_path = {"serving": {"forwards": {
         "flash_attention": serve_launches}}}
+    launches_by_path.update(serve_new_archs(dev))
+
+    # -- 7. the hybrid path: full zamba2-7b ----------------------------------
     zcfg = get_config("zamba2-7b")
     n_attn = zcfg.n_layers // zcfg.shared_attn_every
     launches_by_path["zamba2-7b"] = model_path(
@@ -2426,10 +2670,13 @@ def main() -> None:
                    "flash_decode_split": 0, "flash_decode_combine": 0},
         decode_batch=SSM_DECODE_BATCH, cache_len=HYBRID_DECODE[1], seed=1)
 
-    # -- 9. kernel path vs plain path at model level --------------------------
+    # -- 9. the MoE path; 10. the MLA path; 11. the encoder-decoder path ------
+    launches_by_path.update(moe_mla_encdec_paths(dev))
+
+    # -- 12. kernel path vs plain path at model level -------------------------
     model_plain_paths(dev)
 
-    # -- 10. timing -----------------------------------------------------------
+    # -- 13. timing -----------------------------------------------------------
     place_row = time_fused_place(dev)
 
     attn_rows = []
@@ -2489,16 +2736,16 @@ def main() -> None:
     new_rows = time_new_kernels(dev, new_err, decode_pos)
     wq_rows = time_window_query(dev, wq_rows)
 
-    # -- 11. single controller; 12. the launch checker's fixture -------------
+    # -- 14. single controller; 15. the launch checker's fixture -------------
     single_controller_phase(dev)
     racy_row, racy_launches = fixture_phase(dev)
 
-    # -- 13. the calibration; 14. the sanitizers -----------------------------
+    # -- 16. the calibration; 17. the sanitizers -----------------------------
     calib_report, calib_counts = calibration_phase(dev)
     sanitize_phase(dev, values[:SANITIZE_FRAMES], bw[:SANITIZE_FRAMES],
                    calib_report)
 
-    # -- 15. telemetry; 16. profile; 17. the obs CLI; 18. the sharded sweep
+    # -- 18. telemetry; 19. profile; 20. the obs CLI; 21. the sharded sweep
     obs_counts = {
         "fleet telemetry": telemetry_phase(dev, values, bw, main_leaves),
         "fleet profile": profile_phase(dev, values, bw),
@@ -2595,7 +2842,11 @@ def main() -> None:
          **{k: new_rows["flash_decode"][k]
             for k in ("split_ms", "combine_ms")},
          "launch_parameters": {k: new_rows["flash_decode"][k]
-                               for k in ("n_split", "chunk")}},
+                               for k in ("n_split", "chunk")},
+         "cases": [{k: r[k] for k in ("case", "ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by",
+                                      "share_of_bound")}
+                   for r in new_rows["decode_cases"]]},
         wq_entry("window_query_batched",
                  hp_queries + sum(fleet_counts_by_path(
                      "window_query_batched").values()),

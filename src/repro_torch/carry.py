@@ -25,7 +25,6 @@ from repro_torch.core.tensor_state import SchedState
 from repro_torch.fleet.metrics import _host
 from repro_torch.fleet.metrics import stats_to_numpy  # noqa: F401 (re-export)
 from repro_torch.fleet.state import FleetState
-from repro_torch.models.transformer import check_supported
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32,
@@ -65,8 +64,8 @@ def fleet_to_numpy(fs: FleetState) -> FleetState:
 def _leaf_converter(cfg, device):
     """numpy leaf -> tensor on ``device``, keeping the leaf's own dtype: an
     f32 leaf stays f32 (the SSM's ``D``, ``dt_bias``, ``A_log`` and
-    ``D_head`` in a bf16 model), an int32 leaf stays int32, and any other
-    float leaf goes to ``cfg.dtype``.
+    ``D_head`` and the MoE's ``router`` in a bf16 model), an int32 leaf
+    stays int32, and any other float leaf goes to ``cfg.dtype``.
 
     ``jax.device_get`` gives bf16 leaves as ``ml_dtypes.bfloat16`` arrays,
     which ``torch.from_numpy`` refuses: they go through float32, which holds
@@ -100,12 +99,14 @@ def model_params_from_numpy(cfg, params, *, device=None) -> dict:
     numpy arrays), on ``device`` (``None`` -> CUDA).
 
     Stacked layer leaves are unstacked into per-layer names: ``stack``
-    leaves ``[L, …]`` become ``layers.<i>.…``; ``ssm_stack`` leaves
+    leaves ``[L, …]`` become ``layers.<i>.…``, ``dense_stack`` leaves
+    ``dense_layers.<i>.…``, ``enc_stack`` and ``dec_stack`` leaves
+    ``enc_layers.<i>.…`` and ``dec_layers.<i>.…`` (nested leaves such as
+    ``moe.shared.wg`` keep their path); ``ssm_stack`` leaves
     ``[L, …]`` become ``ssm_stack.<i>.…``; the hybrid's ``groups`` leaves
     ``[n_groups, g, …]`` become ``groups.<a>.<b>.…`` and ``tail`` leaves
     ``[rem, …]`` ``tail.<r>.…``; ``shared_attn`` is one block, unstacked.
     Each leaf keeps its own dtype (``_leaf_converter``)."""
-    check_supported(cfg)
     conv = _leaf_converter(cfg, resolve_device(device))
     state = {"embed": conv(params["embed"]), "ln_f": conv(params["ln_f"])}
     if not cfg.tie_embeddings:
@@ -131,8 +132,14 @@ def model_params_from_numpy(cfg, params, *, device=None) -> dict:
         if rem:
             unstack(params["tail"], (rem,), "tail")
         unstack(params["shared_attn"], (), "shared_attn")
+    elif cfg.is_encoder_decoder:
+        unstack(params["enc_stack"], (cfg.n_encoder_layers,), "enc_layers")
+        unstack(params["dec_stack"], (cfg.n_layers,), "dec_layers")
     else:
-        unstack(params["stack"], (cfg.n_layers,), "layers")
+        nd = cfg.first_dense_layers if cfg.uses_moe else 0
+        if nd:
+            unstack(params["dense_stack"], (nd,), "dense_layers")
+        unstack(params["stack"], (cfg.n_layers - nd,), "layers")
     return state
 
 
@@ -140,7 +147,7 @@ def decode_state_from_numpy(cfg, state, *, device=None) -> dict:
     """A copy of a ``repro`` ``Model.init_decode_state`` / ``decode_step``
     state (a dict of numpy arrays) on ``device`` (``None`` -> CUDA), as
     ``Model.decode_step`` takes it: ``pos`` int32, the recurrent states
-    ``h`` / ``h_tail`` f32, the caches and conv buffers in ``cfg.dtype``."""
-    check_supported(cfg)
+    ``h`` / ``h_tail`` f32, the caches (``k``, ``v``, MLA's ``ckv``),
+    the encoder ``memory`` and the conv buffers in ``cfg.dtype``."""
     conv = _leaf_converter(cfg, resolve_device(device))
     return {k: conv(v) for k, v in state.items()}

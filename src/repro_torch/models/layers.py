@@ -1,5 +1,5 @@
 """Core transformer layers, in PyTorch: the port of
-``repro/models/layers.py`` for the dense and VLM decoder stacks.
+``repro/models/layers.py``.
 
 Shapes and parameter layouts are the JAX package's: B=batch, S=sequence,
 D=d_model, H=query heads, K=kv heads, h=head_dim; ``wq`` is [D,H,h] and
@@ -17,8 +17,14 @@ the flash-decode kernel (``kernels/flash_decode/ops.py::decode_attention_op``)
 for a CUDA tensor, at every cache length and window, and through ``_sdpa``
 with the reference's mask on the CPU.
 
-Not ported here (later slices): ``cross_attention`` and MLA. The JAX package's ``set_attention_q_sharding`` hint is a GSPMD
-sharding constraint with no counterpart on one card, so it is left out.
+``cross_attention`` (decoder to encoder memory, and the encoder's
+bidirectional self-attention) and DeepSeek-V2's MLA (``mla_attention``,
+the expanded prefill form, and ``mla_attention_decode``, the absorbed form
+against the latent cache) are plain torch on every device, as they are
+plain jnp in the reference: no kernel computes them. ``cross_attention``
+takes an empty memory (zero frames) and gives zeros, as jnp does. The JAX
+package's ``set_attention_q_sharding`` hint is a GSPMD sharding
+constraint with no counterpart on one card, so it is left out.
 """
 
 from __future__ import annotations
@@ -217,6 +223,120 @@ def attention_decode(p, x, dims: AttnDims, cache_k, cache_v, pos,
         mask = torch.where(ok, 0.0, NEG_INF).float()[:, None, :]
         out = _sdpa(q, cache_k, cache_v, mask, dims)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache_k, cache_v
+
+
+def cross_attention(p, x, memory, dims: AttnDims):
+    """Decoder->encoder attention (no rope on memory keys, no mask).
+    x: [B,Sq,D]; memory: [B,Sk,D], Sk may be 0."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", memory, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", memory, p["wv"])
+    B, Sq, Sk = x.shape[0], x.shape[1], memory.shape[1]
+    mask = torch.zeros((B, Sq, Sk), dtype=torch.float32, device=x.device)
+    out = _sdpa(q, k, v, mask, dims)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MLADims:
+    n_heads: int
+    head_dim: int            # per-head nope dim
+    kv_lora_rank: int
+    q_lora_rank: int
+    rope_head_dim: int
+    rope_theta: float = 1e4
+
+
+def init_mla(gen, d_model, dims: MLADims, dtype=torch.bfloat16,
+             device=None) -> dict:
+    H, hd = dims.n_heads, dims.head_dim
+    r, qr, rh = dims.kv_lora_rank, dims.q_lora_rank or d_model, \
+        dims.rope_head_dim
+    s = d_model ** -0.5
+
+    def draw(shape, scale):
+        return normal_init(gen, shape, scale, dtype, device)
+
+    return {
+        "wq_a": draw((d_model, qr), s),
+        "wq_b": draw((qr, H, hd + rh), qr ** -0.5),
+        "wkv_a": draw((d_model, r + rh), s),
+        "wkv_b": draw((r, H, 2 * hd), r ** -0.5),
+        "wo": draw((H, hd, d_model), (H * hd) ** -0.5),
+        "q_norm": torch.zeros((qr,), dtype=dtype, device=device),
+        "kv_norm": torch.zeros((r,), dtype=dtype, device=device),
+    }
+
+
+def _mla_qkv(p, x, dims: MLADims, positions):
+    hd = dims.head_dim
+    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wq_a"]), p["q_norm"])
+    q = torch.einsum("bsr,rhk->bshk", cq, p["wq_b"])
+    q_nope, q_rope = q[..., :hd], q[..., hd:]
+    q_rope = apply_rope(q_rope, positions, dims.rope_theta)
+    ckv = torch.einsum("bsd,dr->bsr", x, p["wkv_a"])
+    c_kv, k_rope = ckv[..., :dims.kv_lora_rank], ckv[..., dims.kv_lora_rank:]
+    c_kv = rms_norm(c_kv, p["kv_norm"])
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        dims.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(p, q_nope, q_rope, c_kv, k_rope, mask, dims: MLADims):
+    """Latent-space attention: queries are absorbed into the compressed KV
+    (the memory-bound decode form that makes MLA's cache small)."""
+    hd = dims.head_dim
+    wk_b, wv_b = p["wkv_b"][..., :hd], p["wkv_b"][..., hd:]
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wk_b)      # [B,Sq,H,r]
+    scores = torch.einsum("bshr,btr->bhst", q_lat, c_kv).float()
+    scores += torch.einsum("bshk,btk->bhst", q_rope, k_rope).float()
+    scores *= (hd + dims.rope_head_dim) ** -0.5
+    scores += mask[:, None, :, :]
+    w = torch.softmax(scores, dim=-1).to(c_kv.dtype)
+    out_lat = torch.einsum("bhst,btr->bshr", w, c_kv)
+    out = torch.einsum("bshr,rhk->bshk", out_lat, wv_b)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def mla_attention(p, x, dims: MLADims, positions):
+    """Full-sequence causal MLA in the *expanded* form: latents are
+    up-projected to per-head k/v before the S×S contraction. No window."""
+    hd = dims.head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, dims, positions)
+    wk_b, wv_b = p["wkv_b"][..., :hd], p["wkv_b"][..., hd:]
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, wk_b)
+    v = torch.einsum("bsr,rhk->bshk", c_kv, wv_b)
+    scores = torch.einsum("bqhk,bshk->bhqs", q_nope, k_nope).float()
+    scores += torch.einsum("bqhk,bsk->bhqs", q_rope, k_rope).float()
+    scores *= (hd + dims.rope_head_dim) ** -0.5
+    scores += causal_window_mask(positions, positions, -1)[:, None, :, :]
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    del scores
+    out = torch.einsum("bhqs,bshk->bqhk", w, v)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def mla_attention_decode(p, x, dims: MLADims, cache, pos):
+    """One token against the latent cache. x: [B,1,D]; cache: [B,S,r+rh],
+    the compressed latents and the rope key of every position; pos: [B]
+    int32. The token's ``[c_kv, k_rope]`` is written into ``cache`` **in
+    place** at ``pos`` (the reference updates it functionally), and the
+    token attends to ``cache[: pos+1]``. Returns (out [B,1,D], cache)."""
+    B, S = cache.shape[:2]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, dims, pos[:, None])
+    rows = torch.arange(B, device=x.device)
+    cache[rows, pos.long()] = torch.cat([c_kv, k_rope], dim=-1)[:, 0]
+    c_kv_all = cache[..., :dims.kv_lora_rank]
+    k_rope_all = cache[..., dims.kv_lora_rank:]
+    k_pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    mask = torch.where(pos[:, None] - k_pos[None, :] >= 0, 0.0,
+                       NEG_INF).float()[:, None, :]
+    out = _mla_attend(p, q_nope, q_rope, c_kv_all, k_rope_all, mask, dims)
+    return out, cache
 
 
 # ---------------------------------------------------------------------------

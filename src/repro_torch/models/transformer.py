@@ -1,22 +1,36 @@
 """Model assembly in PyTorch: the port of ``repro/models/transformer.py``
-for the dense and VLM decoder families without MoE or MLA (waste-pipeline,
-qwen2.5-3b, granite-8b, gemma2-2b, llava-next-34b), the SSM family
-(falcon-mamba-7b: Mamba-1 blocks) and the hybrid family (zamba2-7b: groups
-of Mamba-2 blocks, each group followed by one shared attention block), with
-the full-sequence forward and single-token decode.
+for every family the JAX package runs: the dense and VLM decoders
+(waste-pipeline, qwen2.5-3b, granite-8b, gemma2-2b, llava-next-34b), the
+MoE decoders (moonshot-v1-16b-a3b and kimi-k2-1t-a32b: leading dense-FFN
+layers, then MoE layers; deepseek-v2-236b the same with MLA attention),
+the encoder-decoder (seamless-m4t-medium: a bidirectional encoder over
+``batch["media"]``, a causal decoder with cross-attention to its output),
+the SSM family (falcon-mamba-7b: Mamba-1 blocks) and the hybrid family
+(zamba2-7b: groups of Mamba-2 blocks, each group followed by one shared
+attention block), with the full-sequence forward and single-token decode.
 
 The JAX package stacks its layer parameters on leading axes and scans
 them; the port keeps one module per layer in ``nn.ModuleList``s and runs
 them in a Python loop, so each layer's sliding window
 (``ModelConfig.window_for_layer``) is a plain int. Parameter names mirror
 the JAX leaves, with each stacked axis as a list index: ``embed``, ``ln_f``,
-``unembed``; per dense layer ``layers.<i>.ln1``, ``ln2``,
-``attn.wq/wk/wv/wo[/bq/bk/bv]`` and ``mlp.wg/wu/wd`` (the JAX ``stack``);
+``unembed``; per decoder layer ``layers.<i>.ln1``, ``ln2``,
+``attn.wq/wk/wv/wo[/bq/bk/bv]`` (MLA: ``attn.wq_a/wq_b/wkv_a/wkv_b/wo/
+q_norm/kv_norm``) and ``mlp.wg/wu/wd`` or ``moe.router/wg/wu/wd[/shared.
+wg/wu/wd]`` (the JAX ``stack``); a MoE model's leading dense layers
+``dense_layers.<i>.…`` (``dense_stack``); the encoder-decoder's
+``enc_layers.<i>.…`` and ``dec_layers.<i>.…`` (``enc_stack``,
+``dec_stack``), a decoder layer with ``xattn.wq/wk/wv/wo`` and ``ln_x``;
 per SSM block ``ssm_stack.<i>.ln`` and ``ssm_stack.<i>.ssm.<leaf>``; for
 the hybrid ``groups.<g>.<j>.…``, ``tail.<r>.…`` and ``shared_attn.…``.
 
-Decode updates the state's caches and recurrent states in place
-(``decode_step``).
+Causal self-attention goes through the flash-attention kernel and its
+decode through the flash-decode kernel on the card; MLA, the encoder's
+bidirectional attention, cross-attention and the MoE are plain torch, as
+they are plain jnp in the reference. Decode updates the state's caches and
+recurrent states in place (``decode_step``); the encoder-decoder's decode
+attends to ``state["memory"]``, which ``init_decode_state`` zeroes and
+nothing fills, as in the reference.
 """
 
 from __future__ import annotations
@@ -28,15 +42,21 @@ from repro_torch._device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     AttnDims,
+    MLADims,
     attention,
     attention_decode,
+    cross_attention,
     init_attention,
+    init_mla,
     init_mlp,
+    mla_attention,
+    mla_attention_decode,
     mlp,
     normal_init,
     rms_norm,
     softcap,
 )
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import (
     SSMDims,
     init_ssm,
@@ -46,17 +66,6 @@ from repro_torch.models.ssm import (
     mamba2_forward,
 )
 
-_LATER = "ROADMAP.md queue 1 item 1 (MoE, MLA and encoder-decoder families)"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a family this port does not run
-    yet: MoE, MLA and the encoder-decoder family."""
-    if cfg.uses_moe or cfg.use_mla or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.arch_type}) is not ported yet: see {_LATER}")
-
-
 def _attn_dims(cfg: ModelConfig) -> AttnDims:
     return AttnDims(
         n_heads=cfg.n_heads,
@@ -64,6 +73,17 @@ def _attn_dims(cfg: ModelConfig) -> AttnDims:
         head_dim=cfg.head_dim,
         rope_theta=cfg.rope_theta,
         attn_softcap=cfg.attn_logit_softcap,
+    )
+
+
+def _mla_dims(cfg: ModelConfig) -> MLADims:
+    return MLADims(
+        n_heads=cfg.n_heads,
+        head_dim=cfg.head_dim,
+        kv_lora_rank=cfg.kv_lora_rank,
+        q_lora_rank=cfg.q_lora_rank,
+        rope_head_dim=cfg.rope_head_dim,
+        rope_theta=cfg.rope_theta,
     )
 
 
@@ -90,34 +110,74 @@ def _zeros_param(n: int, dtype, device) -> nn.Parameter:
 
 
 class DecoderBlock(nn.Module):
-    """Pre-norm attention + gated MLP, one layer of the stack."""
+    """Pre-norm attention (GQA or MLA), optional cross-attention to an
+    encoder memory (``cross``), and a gated MLP or a MoE FFN (``moe``): one
+    layer of a stack."""
 
-    def __init__(self, cfg: ModelConfig, gen, dtype, device):
+    def __init__(self, cfg: ModelConfig, gen, dtype, device, *,
+                 moe: bool = False, cross: bool = False):
         super().__init__()
         D = cfg.d_model
         self.ln1 = _zeros_param(D, dtype, device)
         self.ln2 = _zeros_param(D, dtype, device)
-        self.attn = _params(init_attention(gen, D, _attn_dims(cfg),
-                                           cfg.qkv_bias, dtype, device))
-        self.mlp = _params(init_mlp(gen, D, cfg.d_ff, dtype, device))
+        if cfg.use_mla:
+            self.attn = _params(init_mla(gen, D, _mla_dims(cfg), dtype,
+                                         device))
+        else:
+            self.attn = _params(init_attention(gen, D, _attn_dims(cfg),
+                                               cfg.qkv_bias, dtype, device))
+        if cross:
+            self.xattn = _params(init_attention(gen, D, _attn_dims(cfg),
+                                                False, dtype, device))
+            self.ln_x = _zeros_param(D, dtype, device)
+        self.is_moe = moe
+        if moe:
+            self.moe = MoE(gen, D, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff,
+                           cfg.n_shared_experts, dtype, device)
+        else:
+            self.mlp = _params(init_mlp(gen, D, cfg.d_ff, dtype, device))
+
+    def _cross_and_ffn(self, x, cfg: ModelConfig, memory):
+        """The layer after its self-attention: cross-attention to
+        ``memory`` (when given) and the FFN. Returns (x, aux), aux None
+        without MoE (no device op for a constant 0)."""
+        if memory is not None:
+            h = rms_norm(x, self.ln_x, cfg.norm_eps)
+            x = x + cross_attention(self.xattn, h, memory, _attn_dims(cfg))
+        h = rms_norm(x, self.ln2, cfg.norm_eps)
+        if self.is_moe:
+            h, aux = self.moe(h, cfg.top_k, cfg.capacity_factor, cfg.act)
+        else:
+            h, aux = mlp(self.mlp, h, cfg.act), None
+        return x + h, aux
 
     def forward(self, x, cfg: ModelConfig, positions, window: int,
-                backend: str):
+                backend: str, memory=None, causal: bool = True):
+        """Returns (x, aux): aux the MoE's load-balance loss, else None.
+        ``causal`` False is the encoder's bidirectional self-attention."""
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        x = x + attention(self.attn, h, _attn_dims(cfg), positions, window,
+        if cfg.use_mla:
+            h = mla_attention(self.attn, h, _mla_dims(cfg), positions)
+        elif causal:
+            h = attention(self.attn, h, _attn_dims(cfg), positions, window,
                           backend)
-        h = rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + mlp(self.mlp, h, cfg.act)
+        else:
+            h = cross_attention(self.attn, h, h, _attn_dims(cfg))
+        return self._cross_and_ffn(x + h, cfg, memory)
 
-    def decode(self, x, cfg: ModelConfig, cache_k, cache_v, pos,
-               window: int, backend: str):
-        """One token; writes its k and v into the caches in place."""
+    def decode(self, x, cfg: ModelConfig, cache: dict, pos, window: int,
+               backend: str, memory=None):
+        """One token; writes its k and v (MLA: its latent ``ckv``) into the
+        caches of ``cache`` in place."""
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        h, _, _ = attention_decode(self.attn, h, _attn_dims(cfg), cache_k,
-                                   cache_v, pos, window, backend)
-        x = x + h
-        h = rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + mlp(self.mlp, h, cfg.act)
+        if cfg.use_mla:
+            h, _ = mla_attention_decode(self.attn, h, _mla_dims(cfg),
+                                        cache["ckv"], pos)
+        else:
+            h, _, _ = attention_decode(self.attn, h, _attn_dims(cfg),
+                                       cache["k"], cache["v"], pos, window,
+                                       backend)
+        return self._cross_and_ffn(x + h, cfg, memory)[0]
 
 
 class SSMBlock(nn.Module):
@@ -147,7 +207,8 @@ class SSMBlock(nn.Module):
 
 
 class Model(nn.Module):
-    """Decoder-only model of the dense, VLM, SSM and hybrid families.
+    """Model of every family: dense, VLM, MoE (with or without MLA),
+    encoder-decoder, SSM and hybrid.
 
     ``device`` None -> CUDA (raises without it). ``backend`` is passed to
     every kernel dispatcher for CUDA tensors ("auto"/"kernel": the CUDA
@@ -163,7 +224,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
                  backend: str = "auto", init_device="cpu"):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.backend = backend
         device = resolve_device(device)
@@ -196,10 +256,20 @@ class Model(nn.Module):
             self.tail = nn.ModuleList(
                 SSMBlock(cfg, 2, gen, dt, device) for _ in range(rem))
             self.shared_attn = DecoderBlock(cfg, gen, dt, device)
-        else:
-            self.layers = nn.ModuleList(
+        elif cfg.is_encoder_decoder:
+            self.enc_layers = nn.ModuleList(
                 DecoderBlock(cfg, gen, dt, device)
+                for _ in range(cfg.n_encoder_layers))
+            self.dec_layers = nn.ModuleList(
+                DecoderBlock(cfg, gen, dt, device, cross=True)
                 for _ in range(cfg.n_layers))
+        else:
+            nd = cfg.first_dense_layers if cfg.uses_moe else 0
+            self.dense_layers = nn.ModuleList(
+                DecoderBlock(cfg, gen, dt, device) for _ in range(nd))
+            self.layers = nn.ModuleList(
+                DecoderBlock(cfg, gen, dt, device, moe=cfg.uses_moe)
+                for _ in range(cfg.n_layers - nd))
 
     def init(self, seed: int, init_device="cpu") -> "Model":
         """Redraw every weight from ``seed`` with an explicit
@@ -217,10 +287,13 @@ class Model(nn.Module):
         return softcap(logits, cfg.final_logit_softcap)
 
     def forward(self, batch: dict):
-        """Returns (logits [B,S,V], aux_loss). ``batch`` carries ``tokens``
-        [B,S_text] and optionally ``media`` [B,S_media,D] (VLM patch
-        embeddings, placed before the text). An SSM or hybrid sequence must
-        be a multiple of ``cfg.ssm_chunk``."""
+        """Returns (logits [B,S,V], aux_loss): aux the sum of the MoE
+        layers' load-balance losses (f32, 0 without MoE). ``batch`` carries
+        ``tokens`` [B,S_text] and ``media`` [B,S_media,D]: VLM patch
+        embeddings, placed before the text (optional), or the
+        encoder-decoder's audio frames, which the encoder runs over
+        (required; S_media may be 0). An SSM or hybrid sequence must be a
+        multiple of ``cfg.ssm_chunk``."""
         cfg, backend = self.cfg, self.backend
         x = self.embed[batch["tokens"].long()]
         if cfg.frontend == "vision" and "media" in batch:
@@ -228,6 +301,7 @@ class Model(nn.Module):
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.arch_type == "ssm":
             for block in self.ssm_stack:
                 x = block(x, cfg, backend)
@@ -235,15 +309,29 @@ class Model(nn.Module):
             for group in self.groups:
                 for block in group:
                     x = block(x, cfg, backend)
-                x = self.shared_attn(x, cfg, positions, -1, backend)
+                x, _ = self.shared_attn(x, cfg, positions, -1, backend)
             for block in self.tail:
                 x = block(x, cfg, backend)
+        elif cfg.is_encoder_decoder:
+            mem = batch["media"].to(x.dtype)
+            mem_pos = torch.arange(mem.shape[1], dtype=torch.int32,
+                                   device=x.device).expand(mem.shape[:2])
+            for block in self.enc_layers:
+                mem, _ = block(mem, cfg, mem_pos, -1, backend, causal=False)
+            for block in self.dec_layers:
+                x, _ = block(x, cfg, positions, -1, backend, memory=mem)
         else:
+            # the dense layers global; the stack's windows from its index
+            # 0, as in the reference's forward (its decode counts from the
+            # first dense layer)
+            for block in self.dense_layers:
+                x, _ = block(x, cfg, positions, -1, backend)
             for i, block in enumerate(self.layers):
-                x = block(x, cfg, positions, cfg.window_for_layer(i),
-                          backend)
-        return self._logits(x), torch.zeros((), dtype=torch.float32,
-                                            device=x.device)
+                x, aux = block(x, cfg, positions, cfg.window_for_layer(i),
+                               backend)
+                if aux is not None:
+                    aux_total = aux_total + aux
+        return self._logits(x), aux_total
 
     # -- decode ---------------------------------------------------------------
 
@@ -253,8 +341,10 @@ class Model(nn.Module):
         [L,B,di,N] f32 and ``conv`` [L,B,d_conv-1,di]; for the hybrid ``h``
         [n_groups,g,B,H,P,N] f32, ``conv`` [n_groups,g,B,d_conv-1,di],
         ``h_tail`` and ``conv_tail`` for the tail blocks, and the shared
-        block's caches ``k``, ``v`` [n_groups,B,S,K,hd]; for the dense
-        family ``k``, ``v`` [L,B,S,K,hd]. Caches in the model dtype."""
+        block's caches ``k``, ``v`` [n_groups,B,S,K,hd]; with MLA the
+        latent cache ``ckv`` [L,B,S,r+rh]; for the other families ``k``,
+        ``v`` [L,B,S,K,hd], and for the encoder-decoder the encoder
+        ``memory`` [B,S//4,D]. Caches in the model dtype."""
         cfg = self.cfg
         dev = self.embed.device
         dt = getattr(torch, cfg.dtype)
@@ -283,10 +373,15 @@ class Model(nn.Module):
                 state["conv_tail"] = zeros((rem, B, *conv))
             state["k"] = zeros((n_groups, B, S, K, hd))
             state["v"] = zeros((n_groups, B, S, K, hd))
+        elif cfg.use_mla:
+            state["ckv"] = zeros((cfg.n_layers, B, S,
+                                  cfg.kv_lora_rank + cfg.rope_head_dim))
         else:
             L = cfg.n_layers
             state["k"] = zeros((L, B, S, K, hd))
             state["v"] = zeros((L, B, S, K, hd))
+            if cfg.is_encoder_decoder:
+                state["memory"] = zeros((B, S // 4, cfg.d_model))
         return state
 
     def decode_step(self, state: dict, tokens):
@@ -294,9 +389,9 @@ class Model(nn.Module):
         the current state, written at ``state["pos"]``.
 
         The caches, recurrent states and conv buffers of ``state`` are
-        updated **in place** (the JAX package returns new ones; a copy of a
-        multi-GB cache per step would dominate the step); ``pos`` is
-        replaced by ``pos + 1``. The returned dict holds the same tensors."""
+        updated **in place**, and ``memory`` is only read (the JAX package
+        returns new ones; a copy of a multi-GB cache per step would
+        dominate the step); ``pos`` is replaced by ``pos + 1``. The returned dict holds the same tensors."""
         cfg, backend = self.cfg, self.backend
         pos = state["pos"]
         x = self.embed[tokens.long()][:, None, :]          # [B,1,D]
@@ -308,16 +403,24 @@ class Model(nn.Module):
                 for j, block in enumerate(group):
                     x = block.decode(x, cfg, state["h"][gi, j],
                                      state["conv"][gi, j])
-                x = self.shared_attn.decode(x, cfg, state["k"][gi],
-                                            state["v"][gi], pos, -1,
-                                            backend)
+                x = self.shared_attn.decode(
+                    x, cfg, {"k": state["k"][gi], "v": state["v"][gi]}, pos,
+                    -1, backend)
             for r, block in enumerate(self.tail):
                 x = block.decode(x, cfg, state["h_tail"][r],
                                  state["conv_tail"][r])
+        elif cfg.use_mla:
+            for i, block in enumerate([*self.dense_layers, *self.layers]):
+                x = block.decode(x, cfg, {"ckv": state["ckv"][i]}, pos, -1,
+                                 backend)
         else:
-            for i, block in enumerate(self.layers):
-                x = block.decode(x, cfg, state["k"][i], state["v"][i], pos,
-                                 cfg.window_for_layer(i), backend)
+            blocks = (self.dec_layers if cfg.is_encoder_decoder
+                      else [*self.dense_layers, *self.layers])
+            for i, block in enumerate(blocks):
+                x = block.decode(x, cfg, {"k": state["k"][i],
+                                          "v": state["v"][i]}, pos,
+                                 cfg.window_for_layer(i), backend,
+                                 memory=state.get("memory"))
         state["pos"] = pos + 1
         return self._logits(x)[:, 0], state
 

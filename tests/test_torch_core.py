@@ -270,9 +270,9 @@ def test_seq_sum_is_the_reference_order():
 def test_port_imports_without_jax_or_repro():
     """Every module of the port imports in a process where ``jax`` and
     ``repro`` cannot be imported at all: the fleet path, the serving path
-    with its model substrate and attention kernel, the SSM and hybrid
-    families with their scan and decode kernels, the window query and the
-    launch geometry checker with its fixture."""
+    with its model substrate and attention kernel, the MoE, SSM and
+    hybrid families with their scan and decode kernels, the window query
+    and the launch geometry checker with its fixture."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -307,7 +307,7 @@ def test_port_imports_without_jax_or_repro():
                  "kernels.flash_attention.flash_attention",
                  "kernels.flash_attention.ops",
                  "kernels.flash_attention.ref", "serving.engine",
-                 "launch.serve", "carry", "models.ssm",
+                 "launch.serve", "carry", "models.ssm", "models.moe",
                  "kernels.ssm_scan.ssm_scan", "kernels.ssm_scan.ops",
                  "kernels.ssm_scan.ref", "kernels.ssd_scan.ssd_scan",
                  "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",

@@ -11,7 +11,12 @@ passes agree to ~2e-5 a logit, see test_torch_models.py).
 The engines run the reduced waste-pipeline config (2 layers, d_model 256,
 16 media tokens, f32) on all 35 frames of a 10-period trace, to keep the
 file well under a minute; ``serve`` runs the full waste-pipeline config in
-bf16, as the launcher does, on 3 periods.
+bf16, as the launcher does, on 3 periods. The MoE, MLA and
+encoder-decoder archs (deepseek-v2-236b, kimi-k2-1t-a32b,
+moonshot-v1-16b-a3b, seamless-m4t-medium) run the same way through RAS,
+reduced as ``serve`` reduces them (f32); seamless's engine feeds its
+encoder zero media frames, so its decoder cross-attends to an empty
+memory.
 """
 
 import dataclasses
@@ -43,10 +48,21 @@ def _frames(n_periods=10, n_workers=4):
             if tr.entries[f, d] >= 0]
 
 
-@pytest.mark.parametrize("scheduler", ["ras", "wps"])
-def test_engine_matches_jax_engine(scheduler):
-    cfg_j = reduced_j(get_config_j("waste-pipeline"))
-    cfg_t = reduced(get_config("waste-pipeline"))
+NEW_ARCHS = ("deepseek-v2-236b", "kimi-k2-1t-a32b", "moonshot-v1-16b-a3b",
+             "seamless-m4t-medium")
+#: (arch, scheduler): the waste pipeline through both schedulers, the
+#: MoE, MLA and encoder-decoder archs through RAS
+CASES = pytest.mark.parametrize(
+    "arch,scheduler",
+    [("waste-pipeline", "ras"), ("waste-pipeline", "wps"),
+     *((a, "ras") for a in NEW_ARCHS)],
+    ids=["ras", "wps", *(f"{a}-ras" for a in NEW_ARCHS)])
+
+
+@CASES
+def test_engine_matches_jax_engine(arch, scheduler):
+    cfg_j = reduced_j(get_config_j(arch))
+    cfg_t = reduced(get_config(arch))
     assert cfg_t.dtype == "float32"
     eng_j = ServingEngine_j(cfg_j, scheduler=scheduler, seed=0)
     model = Model(cfg_t, device="cpu")
@@ -74,9 +90,9 @@ def test_engine_matches_jax_engine(scheduler):
     assert sum(r.offloaded for r in eng_t.results) > 0
 
 
-@pytest.mark.parametrize("scheduler", ["ras", "wps"])
-def test_serve_matches_jax_serve(scheduler):
-    kw = dict(arch="waste-pipeline", frames=3, scheduler=scheduler, seed=0)
+@CASES
+def test_serve_matches_jax_serve(arch, scheduler):
+    kw = dict(arch=arch, frames=3, scheduler=scheduler, seed=0)
     ref = serve_j(**kw)
     got = serve(**kw, device="cpu")
     assert set(got) == set(ref)

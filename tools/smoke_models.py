@@ -1,0 +1,64 @@
+#!/usr/bin/env python3
+"""Run ``chip_smoke.py``'s model-family phases alone on one card, with its
+checks: quicker than the whole smoke run when only the models changed.
+
+    python3 tools/smoke_models.py [paths] [serve] [plain]
+
+``paths``: the full moonshot-v1-16b-a3b, deepseek-v2-236b at full width
+cut to 2 layers and the full seamless-m4t-medium, forward and decode
+(``moe_mla_encdec_paths``); ``serve``: the reduced MoE, MLA and
+encoder-decoder archs served through RAS, kernel vs plain engine
+(``serve_new_archs``); ``plain``: the model-level kernel-vs-plain
+comparisons (``model_plain_paths``). No argument runs all three. The
+kernels are built first, as ``chip_smoke.py`` builds them. Every line is
+JSON; the first names the card and its power limit. Exits non-zero
+without CUDA or when a check fails.
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PHASES = ("paths", "serve", "plain")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        print("smoke_models: CUDA is not available", file=sys.stderr)
+        sys.exit(1)
+    what = sys.argv[1:] or list(PHASES)
+    if set(what) - set(PHASES):
+        sys.exit(f"smoke_models: phases are {PHASES}, not {what}")
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(1, str(ROOT / "src"))
+    import chip_smoke as smoke
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    smoke.emit({"card": smi, "torch": torch.__version__})
+    t0 = time.perf_counter()
+    _build.build(smoke.KERNELS)
+    smoke.emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    if "paths" in what:
+        smoke.moe_mla_encdec_paths(dev)
+    if "serve" in what:
+        smoke.serve_new_archs(dev)
+    if "plain" in what:
+        smoke.model_plain_paths(dev)
+
+
+if __name__ == "__main__":
+    main()
