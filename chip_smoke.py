@@ -143,7 +143,25 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    batch and in batches of 3000 (a tail of owners -1), within 1e-5 of
    the unsharded sweep with residual 0 and 21 + 4 launches a tick;
    ``mesh_shards=2`` raises on one card; the per-cell reduction's time
-   and the bytes a batch copies to the host.
+   and the bytes a batch copies to the host;
+22. train: ``launch.train.train`` of the full qwen2.5-3b (36 layers, 3.1 B
+   parameters, bf16, drawn on the card), 5 steps of 1 x 4096 tokens:
+   every loss and grad norm finite, ``flash_attention`` 72 launches a
+   step (36 in the forward, 36 in the remat recomputation), all wgmma;
+   zamba2-7b cut to 13 blocks (1 x 4096; ``ssd_scan`` 25 a step: 12 x 2
+   for the two rematted groups and 1 for the tail; ``flash_attention``
+   4) and falcon-mamba-7b cut to 2 layers (1 x 1024; ``ssm_scan`` 4), 3
+   steps each; each leg's ms a step (two more steps timed, one
+   profiled), tokens/s and peak memory against the card's; then, in f32
+   at full width and cut depth (qwen2.5-3b 2 layers, zamba2 one group,
+   falcon-mamba 2 layers, S 512), ``Model.loss`` and every gradient leaf
+   on the kernels (attention on the SIMT route) against the plain
+   versions: the loss within 1e-5 relative, each leaf within 1e-3 of its
+   max |plain|, and one AdamW step from equal gradients leaving both
+   models' weights equal bit for bit; a bf16 checkpoint of the full-width
+   qwen2.5-3b cut to 2 layers saved under the git-ignored build/ and
+   restored bit for bit; and each differentiated kernel route's backward
+   (the plain version recomputed, no launch) timed at its leg's shape.
 
 Every phase line carries ``elapsed_s``, the seconds since the start. Then
 one ``{"kernels": [...]}`` line, and as the last line
@@ -268,9 +286,12 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+
+
 def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
+    if a.dtype == b.dtype and a.dtype in _BITS:
+        a, b = a.view(_BITS[a.dtype]), b.view(_BITS[b.dtype])
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
 
 
@@ -2373,6 +2394,321 @@ def sharded_phase(dev, summary, sweep, stats, state, owners):
             for k in fleet_launches(F)}
 
 
+TRAIN_SEQ = 4096                  # tokens a training step (batch 1)
+TRAIN_STEPS = 5                   # steps of the full qwen2.5-3b
+SCAN_TRAIN_STEPS = 3              # steps of the cut zamba2 and falcon-mamba
+SSM_TRAIN_SEQ = 1024              # falcon-mamba's: its backward steps
+#                                   through ssm_scan_ref
+TRAIN_LOSS_RTOL = 1e-5            # kernel vs plain path, f32
+TRAIN_GRAD_TOL = 1e-3             # kernel vs plain gradient, of a leaf's max
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"   # git-ignored
+
+
+def training_model(cfg, dev, seed: int, backend: str = "auto"):
+    """``Model(cfg)`` drawn on the card with every parameter trainable."""
+    from repro_torch.models.transformer import Model
+
+    model = Model(cfg, seed=seed, device=dev, backend=backend,
+                  init_device=dev)
+    return model.requires_grad_(True)
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_leg(arch: str, cfg, dev, seq: int, steps: int, want: dict,
+              reduced: tuple = ()) -> dict:
+    """Phase 22 for one config: ``train`` (the entry point a user calls) of
+    ``steps`` steps of 1 x ``seq`` tokens, every loss and grad norm
+    finite and each kernel's launches ``want[name]`` a step; then the same
+    model redrawn and two more steps of ``train_step`` timed one by one
+    (launches counted a step) and one profiled. Returns the entry point's
+    launches."""
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.launch.train import train, train_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (hist, train_s) = timed(lambda: train(
+        arch, config=cfg, batch=1, seq=seq, steps=steps, log_every=1,
+        device=dev))
+    run_counts = counts()
+    peak_train = torch.cuda.max_memory_allocated()
+    check(len(hist) == steps and all(
+        math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+        for r in hist), f"{arch}: train history {hist}")
+    for name, n in want.items():
+        check(run_counts[name] == n * steps,
+              f"{arch}: {name} launched {run_counts[name]} times in "
+              f"{steps} steps of train(), not {n} a step")
+
+    free_card()
+    model = training_model(cfg, dev, seed=0)
+    opt_cfg = AdamWConfig(total_steps=steps)
+    opt = adamw_init(model)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             SyntheticCorpus(cfg, seq, 1, seed=0).batch(0).items()}
+    step_s, step_counts = [], []
+    for _ in range(2):
+        reset_counts()
+        (_, gnorm), s_ = timed(lambda: train_step(model, opt_cfg, opt,
+                                                  batch))
+        step_s.append(s_)
+        step_counts.append(nonzero_counts())
+        check(math.isfinite(float(gnorm)), f"{arch}: grad norm {gnorm}")
+    for c in step_counts:
+        for name, n in want.items():
+            check(c.get(name, 0) == n, f"{arch}: {name} launched "
+                                       f"{c.get(name, 0)} times a step, "
+                                       f"not {n}")
+    prof = profile_device(lambda: train_step(model, opt_cfg, opt, batch),
+                          f"{arch} train step")
+    peak = max(peak_train, torch.cuda.max_memory_allocated())
+    card = torch.cuda.get_device_properties(dev).total_memory
+    n_params = sum(p.numel() for p in model.parameters())
+    elapsed = [r["elapsed_s"] for r in hist]
+    row = {"phase": "train_path", "arch": arch, "params": n_params,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "tokens_a_step": [1, seq], "steps": steps,
+           "entry": "launch.train.train", "train_s": train_s,
+           "history": hist,
+           "ms_a_step_from_history": 1e3 * (elapsed[-1] - elapsed[0])
+           / (steps - 1),
+           "launches": run_counts, "launches_a_step": want,
+           "timed_step_ms": [1e3 * x for x in step_s],
+           "timed_step_launches": step_counts,
+           "tokens_per_s": seq / min(step_s),
+           "max_memory_allocated_gb": peak / 1e9,
+           "device_memory_gb": card / 1e9, "reduced": list(reduced)}
+    emit(row)
+    emit({**prof, "of": f"{arch} train step, 1 x {seq}"})
+    check(peak < card, f"{arch}: peak memory {peak} of the card's {card}")
+    del model, opt, batch
+    free_card()
+    return run_counts
+
+
+def backward_recompute_ms(dev) -> dict:
+    """The backward of each differentiated kernel route at its training
+    leg's shape: ms a call of the autograd function's backward, which
+    recomputes the plain version and takes its vjp (no kernel launch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import attention_op
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+    from repro_torch.kernels.ssm_scan.ops import ssm_scan_op
+    from repro_torch.models.transformer import _ssm_dims
+
+    g = torch.Generator(dev).manual_seed(21)
+
+    def rand(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            dtype)
+
+    zcfg, fcfg = (get_config(a) for a in ("zamba2-7b", "falcon-mamba-7b"))
+    zd, fd = _ssm_dims(zcfg), _ssm_dims(fcfg)
+    H, P, N, di = zd.n_heads, zd.head_dim, zd.d_state, fd.d_inner
+    cases = {
+        "flash_attention": ("qwen2.5-3b layer, B 1 x S 4096, H 16 / K 2, "
+                            "hd 128, bf16",
+                            attention_op, lambda: [
+                                rand(1, 16, TRAIN_SEQ, 128),
+                                rand(1, 2, TRAIN_SEQ, 128),
+                                rand(1, 2, TRAIN_SEQ, 128)], {}),
+        "ssd_scan": (f"zamba2-7b block, B 1 x S {TRAIN_SEQ}, H {H}, P {P}, "
+                     f"N {N}, bf16", ssd_scan_op, lambda: [
+                         rand(1, TRAIN_SEQ, H, P),
+                         torch.rand((1, TRAIN_SEQ, H), generator=g,
+                                    device=dev) * 0.1 + 0.01,
+                         -torch.rand((H,), generator=g, device=dev) - 0.5,
+                         rand(1, TRAIN_SEQ, N, scale=0.3),
+                         rand(1, TRAIN_SEQ, N, scale=0.3)],
+                     {"chunk": zcfg.ssm_chunk}),
+        "ssm_scan": (f"falcon-mamba-7b block, B 1 x S {SSM_TRAIN_SEQ}, "
+                     f"di {di}, N {fcfg.ssm_state}, bf16",
+                     ssm_scan_op, lambda: [
+                         rand(1, SSM_TRAIN_SEQ, di),
+                         (torch.rand((1, SSM_TRAIN_SEQ, di), generator=g,
+                                     device=dev) * 0.1 + 0.01).bfloat16(),
+                         -torch.rand((di, fcfg.ssm_state), generator=g,
+                                     device=dev) - 0.5,
+                         rand(1, SSM_TRAIN_SEQ, fcfg.ssm_state),
+                         rand(1, SSM_TRAIN_SEQ, fcfg.ssm_state)], {}),
+    }
+    rows = {}
+    for name, (case, op, make, kw) in cases.items():
+        xs = [x.requires_grad_(True) for x in make()]
+        y = op(*xs, backend="kernel", **kw)
+        dy = torch.randn(y.shape, generator=g, device=dev).to(y.dtype)
+        call = lambda: torch.autograd.grad(y, xs, dy, retain_graph=True)
+        reset_counts()
+        call()
+        torch.cuda.synchronize()
+        launched = nonzero_counts()
+        ms = time_ms(call, budget_ms=1000.0)
+        rows[name] = {"case": case, "backward_ms": ms,
+                      "backward_launches": launched}
+        emit({"phase": "train_backward", "kernel": name, **rows[name]})
+        check(not launched, f"{name}: its backward launched {launched}")
+        del xs, y, dy
+        free_card()
+    return rows
+
+
+def train_vs_plain(dev) -> list:
+    """Phase 22 (c): f32 at full width and cut depth, one forward and
+    backward of ``Model.loss`` on the kernels (attention on the SIMT
+    route) and on their plain versions from the same weights: the loss
+    within TRAIN_LOSS_RTOL, every gradient leaf within TRAIN_GRAD_TOL of
+    its max |plain|; then one AdamW step on each model from the same
+    gradients leaves their weights equal bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+    rows = []
+    for arch, cut in (("qwen2.5-3b", dict(n_layers=2)),
+                      ("zamba2-7b", dict(n_layers=6)),
+                      ("falcon-mamba-7b", dict(n_layers=2))):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32", **cut)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 SyntheticCorpus(cfg, 512, 1, seed=5).batch(0).items()}
+        models, losses, grads, launched = {}, {}, {}, {}
+        for backend in ("kernel", "ref"):
+            model = training_model(cfg, dev, seed=7, backend=backend)
+            reset_counts()
+            loss = model.loss(batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            launched[backend] = nonzero_counts()
+            losses[backend] = loss.item()
+            grads[backend] = {k: torch.zeros_like(p) if p.grad is None
+                              else p.grad.clone()
+                              for k, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            models[backend] = model
+        rel = {k: ((grads["kernel"][k] - g).abs().max()
+                   / g.abs().max().clamp_min(1e-30)).item()
+               for k, g in grads["ref"].items()}
+        worst = max(rel, key=rel.get)
+        loss_rel = abs(losses["kernel"] - losses["ref"]) / abs(losses["ref"])
+        for model in models.values():
+            opt = adamw_init(model)
+            adamw_update(AdamWConfig(lr=1e-3, warmup_steps=0),
+                         grads["kernel"], opt, model)
+        differ = [k for k, p in models["kernel"].named_parameters()
+                  if not bit_equal(p.detach(),
+                                   models["ref"].get_parameter(k).detach())]
+        row = {"phase": "train_plain_path", "arch": arch, "dtype": "float32",
+               "layers": cfg.n_layers, "tokens": [1, 512],
+               "loss": losses, "loss_rel_err": loss_rel,
+               "loss_tolerance": TRAIN_LOSS_RTOL,
+               "grad_leaves": len(rel), "worst_grad_leaf": worst,
+               "worst_grad_err_over_max": rel[worst],
+               "grad_tolerance": TRAIN_GRAD_TOL,
+               "launches": launched,
+               "adamw_step_params_differing": differ}
+        emit(row)
+        check(launched["ref"] == {} and launched["kernel"],
+              f"{arch}: launches by backend {launched}")
+        check(launched["kernel"].get("flash_attention", 0)
+              == launched["kernel"].get("flash_attention_simt", 0),
+              f"{arch}: f32 attention off the SIMT route: "
+              f"{launched['kernel']}")
+        check(loss_rel <= TRAIN_LOSS_RTOL,
+              f"{arch}: kernel and plain losses differ: {losses}")
+        check(rel[worst] <= TRAIN_GRAD_TOL,
+              f"{arch}: gradient {worst} differs by {rel[worst]} of its "
+              f"max")
+        check(not differ, f"{arch}: one AdamW step from equal gradients "
+                          f"gave other weights in {differ}")
+        rows.append(row)
+        del models, grads, batch
+        free_card()
+    return rows
+
+
+def checkpoint_round_trip(dev) -> dict:
+    """Phase 22 (d): the full-width qwen2.5-3b cut to 2 layers, bf16,
+    saved under the git-ignored build/ and restored into a differently
+    seeded model: every leaf equal bit for bit; the directory removed."""
+    import shutil
+
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), n_layers=2)
+    model = training_model(cfg, dev, seed=5)
+    other = training_model(cfg, dev, seed=6)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        _, save_s = timed(lambda: save(str(CKPT_DIR), model, step=3,
+                                       extra={"arch": "qwen2.5-3b"}))
+        nbytes = (CKPT_DIR / "params.npz").stat().st_size
+        (_, step), restore_s = timed(lambda: restore(str(CKPT_DIR),
+                                                     like=other))
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    want = model.state_dict()
+    differ = [k for k, v in other.state_dict().items()
+              if not bit_equal(v, want[k])]
+    row = {"phase": "train_checkpoint", "arch": "qwen2.5-3b",
+           "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "leaves": len(want), "npz_bytes": nbytes, "step": step,
+           "save_s": save_s, "restore_s": restore_s, "differing": differ,
+           "removed": not CKPT_DIR.exists()}
+    emit(row)
+    check(step == 3 and not differ,
+          f"checkpoint round trip: step {step}, differing {differ}")
+    del model, other
+    free_card()
+    return row
+
+
+def train_phase(dev) -> tuple[dict, dict]:
+    """Phase 22: training through ``launch.train.train`` on the card.
+    (a) the full qwen2.5-3b, (b) zamba2-7b cut to 13 blocks and
+    falcon-mamba-7b cut to 2 layers, with each rematted block's kernels
+    launched again in the backward's recomputation; (c) kernel path vs
+    plain path in f32; (d) a bf16 checkpoint round trip; and each
+    differentiated route's backward timed. Returns each leg's launches and
+    the backward times."""
+    from repro_torch.configs import get_config
+
+    qcfg = get_config("qwen2.5-3b")
+    L = qcfg.n_layers
+    by_path = {"qwen2.5-3b train": {"steps": train_leg(
+        "qwen2.5-3b", qcfg, dev, TRAIN_SEQ, TRAIN_STEPS,
+        want={"flash_attention": 2 * L, "flash_attention_wgmma": 2 * L,
+              "flash_attention_simt": 0},
+        reduced=(f"batch 1 x {TRAIN_SEQ} tokens a step (source shape "
+                 "TRAIN_4K: 256 x 4096), for one card",))}}
+    zcfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=13)
+    g = zcfg.shared_attn_every
+    n_groups, rem = divmod(zcfg.n_layers, g)
+    by_path["zamba2-7b train"] = {"steps": train_leg(
+        "zamba2-7b", zcfg, dev, TRAIN_SEQ, SCAN_TRAIN_STEPS,
+        want={"ssd_scan": 2 * n_groups * g + rem,
+              "flash_attention": 2 * n_groups,
+              "flash_attention_wgmma": 2 * n_groups},
+        reduced=("depth 13 of 81 Mamba-2 blocks (2 groups of 6 with the "
+                 "shared attention, 1 tail block)",
+                 f"batch 1 x {TRAIN_SEQ} tokens a step"))}
+    fcfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2)
+    by_path["falcon-mamba-7b train"] = {"steps": train_leg(
+        "falcon-mamba-7b", fcfg, dev, SSM_TRAIN_SEQ, SCAN_TRAIN_STEPS,
+        want={"ssm_scan": 2 * fcfg.n_layers, "flash_attention": 0},
+        reduced=("depth 2 of 64 Mamba-1 blocks",
+                 f"batch 1 x {SSM_TRAIN_SEQ} tokens a step: the backward "
+                 "steps through ssm_scan_ref one token at a time"))}
+    train_vs_plain(dev)
+    checkpoint_round_trip(dev)
+    return by_path, backward_recompute_ms(dev)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2754,6 +3090,10 @@ def main() -> None:
                                            owners),
     }
 
+    # -- 22. training -----------------------------------------------------------
+    train_by_path, backward_rows = train_phase(dev)
+    launches_by_path.update(train_by_path)
+
     def fleet_counts_by_path(name):
         """A fleet kernel's launches on each fleet path but the main one."""
         per = {"calibration run_calibration": calib_counts.get(name, 0)}
@@ -2767,6 +3107,16 @@ def main() -> None:
                for path, parts in launches_by_path.items()
                for part, n in parts.items() if n.get(name)}
         return sum(per.values()), per
+
+    def train_fields(name):
+        """A differentiated kernel's launches on the training legs, and its
+        backward's time a call (the plain version recomputed)."""
+        return {"training_launches": {
+                    path: parts["steps"][name]
+                    for path, parts in train_by_path.items()
+                    if parts["steps"].get(name)},
+                "backward_recompute_ms": backward_rows[name]["backward_ms"],
+                "backward_case": backward_rows[name]["case"]}
 
     def new_entry(name, source, replaces):
         total, per = path_launches(name)
@@ -2827,12 +3177,15 @@ def main() -> None:
                                      "library_ms", "bound_ms", "bound_by",
                                      "share_of_bound")}
                   for r in attn_rows],
-    }, new_entry("ssd_scan",
-                 "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
-                 "src/repro/kernels/ssd_scan/ssd_scan.py:74"),
-        new_entry("ssm_scan",
-                  "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
-                  "src/repro/kernels/ssm_scan/ssm_scan.py:61"),
+        **train_fields("flash_attention"),
+    }, {**new_entry("ssd_scan",
+                    "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                    "src/repro/kernels/ssd_scan/ssd_scan.py:74"),
+        **train_fields("ssd_scan")},
+        {**new_entry("ssm_scan",
+                     "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+                     "src/repro/kernels/ssm_scan/ssm_scan.py:61"),
+         **train_fields("ssm_scan")},
         {**new_entry("flash_decode",
                      "src/repro_torch/kernels/flash_decode/csrc/"
                      "flash_decode.cu",

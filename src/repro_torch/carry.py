@@ -9,8 +9,16 @@ them, so that both engines can start from the same mid-run state.
 ``SchedState`` (the state of ``hp_place`` and ``lp_place``).
 ``model_params_from_numpy`` takes a ``repro`` ``Model.init`` parameter tree
 of numpy arrays and gives this package's ``Model`` state;
-``decode_state_from_numpy`` does the same for a decode state. This module
-imports neither package: it reads fields and keys by name.
+``model_params_to_numpy`` goes the other way (for weights, or gradients by
+parameter name); ``decode_state_from_numpy`` does the same for a decode
+state; ``opt_state_from_numpy`` and ``opt_state_to_numpy`` carry an AdamW
+state across in both directions. This module imports neither package: it
+reads fields and keys by name.
+
+numpy has no bfloat16. A bf16 leaf comes out of this package as its raw
+bits, numpy dtype ``BF16_BITS`` (``V2``): the bytes ``np.savez`` writes for
+the reference's ``ml_dtypes.bfloat16`` arrays. Both such arrays and
+``ml_dtypes`` ones carry in.
 """
 
 from __future__ import annotations
@@ -25,6 +33,10 @@ from repro_torch.core.tensor_state import SchedState
 from repro_torch.fleet.metrics import _host
 from repro_torch.fleet.metrics import stats_to_numpy  # noqa: F401 (re-export)
 from repro_torch.fleet.state import FleetState
+from repro_torch.optim.adamw import OptState
+
+#: numpy's dtype of a bf16 leaf's raw bits (what ``np.savez`` stores)
+BF16_BITS = np.dtype("V2")
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.int32): torch.int32,
@@ -69,13 +81,15 @@ def _leaf_converter(cfg, device):
 
     ``jax.device_get`` gives bf16 leaves as ``ml_dtypes.bfloat16`` arrays,
     which ``torch.from_numpy`` refuses: they go through float32, which holds
-    each bf16 value exactly."""
+    each bf16 value exactly. A ``BF16_BITS`` leaf is read as bf16 bits."""
     dtype = getattr(torch, cfg.dtype)
 
     def conv(x):
         a = np.asarray(x)
         if a.dtype == np.int32:
             return torch.from_numpy(np.array(a)).to(device)
+        if a.dtype == BF16_BITS:
+            return bf16_from_bits(a).to(device=device, dtype=dtype)
         to = torch.float32 if a.dtype == np.float32 else dtype
         a = np.ascontiguousarray(a.astype(np.float32))
         return torch.from_numpy(a).to(device=device, dtype=to)
@@ -93,6 +107,55 @@ def _leaves(tree, prefix: str):
             yield path, val
 
 
+def bf16_from_bits(a: np.ndarray) -> torch.Tensor:
+    """A ``BF16_BITS`` array as the bf16 tensor it holds, on the host."""
+    bits = np.ascontiguousarray(a).view(np.int16)
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``; a bf16 tensor as its ``BF16_BITS``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(BF16_BITS).copy()
+    return t.numpy().copy()
+
+
+def _stack_names(cfg) -> list:
+    """(tree key, port name, stacked layer axes) of each layer stack of
+    ``cfg``'s parameter tree: ``stack`` leaves ``[L, …]`` are the port's
+    ``layers.<i>.…``, and so on (``model_params_from_numpy``)."""
+    if cfg.arch_type == "ssm":
+        return [("ssm_stack", "ssm_stack", (cfg.n_layers,))]
+    if cfg.arch_type == "hybrid":
+        g = cfg.shared_attn_every
+        n_groups, rem = divmod(cfg.n_layers, g)
+        return [("groups", "groups", (n_groups, g)),
+                *([("tail", "tail", (rem,))] if rem else []),
+                ("shared_attn", "shared_attn", ())]
+    if cfg.is_encoder_decoder:
+        return [("enc_stack", "enc_layers", (cfg.n_encoder_layers,)),
+                ("dec_stack", "dec_layers", (cfg.n_layers,))]
+    nd = cfg.first_dense_layers if cfg.uses_moe else 0
+    return [*([("dense_stack", "dense_layers", (nd,))] if nd else []),
+            ("stack", "layers", (cfg.n_layers - nd,))]
+
+
+def _unstack_tree(cfg, params, conv) -> dict:
+    """The port's flat names -> ``conv(leaf)`` of a reference tree."""
+    state = {k: conv(params[k]) for k in ("embed", "ln_f", "unembed")
+             if k in params}
+    for key, name, layers in _stack_names(cfg):
+        for path, leaf in _leaves(params[key], name):
+            if np.shape(leaf)[:len(layers)] != layers:
+                raise ValueError(f"{path} has {np.shape(leaf)[:len(layers)]}"
+                                 f" layers, not {layers}")
+            for idx in itertools.product(*map(range, layers)):
+                port = ".".join([name, *map(str, idx)]) + path[len(name):]
+                state[port] = conv(leaf[idx])
+    return state
+
+
 def model_params_from_numpy(cfg, params, *, device=None) -> dict:
     """The state dict of ``models.transformer.Model(cfg)`` holding the
     weights of ``params``: a ``repro`` ``Model.init`` tree (nested dicts of
@@ -107,40 +170,37 @@ def model_params_from_numpy(cfg, params, *, device=None) -> dict:
     ``[n_groups, g, …]`` become ``groups.<a>.<b>.…`` and ``tail`` leaves
     ``[rem, …]`` ``tail.<r>.…``; ``shared_attn`` is one block, unstacked.
     Each leaf keeps its own dtype (``_leaf_converter``)."""
-    conv = _leaf_converter(cfg, resolve_device(device))
-    state = {"embed": conv(params["embed"]), "ln_f": conv(params["ln_f"])}
-    if not cfg.tie_embeddings:
-        state["unembed"] = conv(params["unembed"])
+    return _unstack_tree(cfg, params,
+                         _leaf_converter(cfg, resolve_device(device)))
 
-    def unstack(tree, layers: tuple, name: str):
-        """Leaves stacked on leading axes of sizes ``layers``, one entry
-        per index."""
-        for path, leaf in _leaves(tree, name):
-            if np.shape(leaf)[:len(layers)] != layers:
-                raise ValueError(f"{path} has {np.shape(leaf)[:len(layers)]}"
-                                 f" layers, not {layers}")
-            for idx in itertools.product(*map(range, layers)):
-                key = ".".join([name, *map(str, idx)]) + path[len(name):]
-                state[key] = conv(leaf[idx])
 
-    if cfg.arch_type == "ssm":
-        unstack(params["ssm_stack"], (cfg.n_layers,), "ssm_stack")
-    elif cfg.arch_type == "hybrid":
-        g = cfg.shared_attn_every
-        n_groups, rem = divmod(cfg.n_layers, g)
-        unstack(params["groups"], (n_groups, g), "groups")
-        if rem:
-            unstack(params["tail"], (rem,), "tail")
-        unstack(params["shared_attn"], (), "shared_attn")
-    elif cfg.is_encoder_decoder:
-        unstack(params["enc_stack"], (cfg.n_encoder_layers,), "enc_layers")
-        unstack(params["dec_stack"], (cfg.n_layers,), "dec_layers")
-    else:
-        nd = cfg.first_dense_layers if cfg.uses_moe else 0
-        if nd:
-            unstack(params["dense_stack"], (nd,), "dense_layers")
-        unstack(params["stack"], (cfg.n_layers - nd,), "layers")
-    return state
+def model_params_to_numpy(cfg, params) -> dict:
+    """The inverse of ``model_params_from_numpy``: the reference's tree
+    (nested dicts of numpy arrays, each layer stack's leaves stacked on its
+    leading axes) of ``params``, a ``Model`` or a dict of port name ->
+    tensor (a state dict, or gradients by parameter name). Each leaf keeps
+    its dtype; a bf16 leaf comes out as its ``BF16_BITS``."""
+    if isinstance(params, torch.nn.Module):
+        params = params.state_dict()
+    flat = {k: tensor_to_numpy(v) for k, v in params.items()}
+    tree = {k: flat.pop(k) for k in ("embed", "ln_f", "unembed")
+            if k in flat}
+    for key, name, layers in _stack_names(cfg):
+        first = ".".join([name, *("0" for _ in layers)])
+        sub = {}
+        for port in [k for k in flat if k.startswith(first + ".")]:
+            path = port[len(first) + 1:].split(".")
+            node = sub
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = np.stack([
+                flat.pop(".".join([name, *map(str, idx)]) + port[len(first):])
+                for idx in itertools.product(*map(range, layers))
+            ]).reshape(*layers, *params[port].shape)
+        tree[key] = sub
+    if flat:
+        raise ValueError(f"names outside the config's tree: {sorted(flat)}")
+    return tree
 
 
 def decode_state_from_numpy(cfg, state, *, device=None) -> dict:
@@ -151,3 +211,26 @@ def decode_state_from_numpy(cfg, state, *, device=None) -> dict:
     the encoder ``memory`` and the conv buffers in ``cfg.dtype``."""
     conv = _leaf_converter(cfg, resolve_device(device))
     return {k: conv(v) for k, v in state.items()}
+
+
+def opt_state_from_numpy(cfg, opt, *, device=None) -> OptState:
+    """A ``repro`` AdamW ``OptState`` of numpy leaves (``step`` int32,
+    ``mu`` and ``nu`` f32 trees shaped like the parameters) as this
+    package's ``OptState`` for ``Model(cfg)``: ``step`` a 0-d int32
+    tensor, ``mu`` and ``nu`` dicts by parameter name, on ``device``
+    (``None`` -> CUDA)."""
+    device = resolve_device(device)
+    conv = _leaf_converter(cfg, device)
+    return OptState(
+        step=torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                          device=device),
+        mu=_unstack_tree(cfg, opt.mu, conv),
+        nu=_unstack_tree(cfg, opt.nu, conv))
+
+
+def opt_state_to_numpy(cfg, opt: OptState) -> OptState:
+    """The inverse of ``opt_state_from_numpy``: ``step`` a 0-d int32 array,
+    ``mu`` and ``nu`` the reference's trees of f32 numpy arrays."""
+    return OptState(step=tensor_to_numpy(opt.step),
+                    mu=model_params_to_numpy(cfg, opt.mu),
+                    nu=model_params_to_numpy(cfg, opt.nu))

@@ -15,7 +15,9 @@ tolerance.
 
 Both kernels are built into one library with ``nvcc`` on first use
 (``kernels/_build.py``) and called through ``ctypes`` on PyTorch's current
-stream. They take CUDA tensors only; anything else raises.
+stream. They take CUDA tensors only; anything else raises. They compute
+no gradient: ``ops.attention_op`` wraps them in the autograd function that
+does.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._autograd import check_no_grad
 
 #: kernel launches since the last reset (one per attention layer a forward),
 #: and the same launches by route
@@ -76,8 +79,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     """q: [B,H,S,hd]; k, v: [B,K,S,hd] (K divides H), contiguous, f32 or
     bf16, on one CUDA device -> [B,H,S,hd] in q's dtype. ``window`` > 0
     keeps keys with ``q_pos - k_pos < window``; ``softcap`` > 0 applies
-    ``tanh(s / softcap) * softcap`` to the scaled scores."""
+    ``tanh(s / softcap) * softcap`` to the scaled scores. The output has
+    no ``grad_fn``: under grad mode an input that requires grad raises
+    (``ops.attention_op`` differentiates)."""
     global launches, launches_wgmma, launches_simt
+    check_no_grad("flash_attention", "ops.attention_op", q, k, v)
     if not isinstance(q, torch.Tensor) or not q.is_cuda:
         raise ValueError("flash_attention runs on CUDA tensors only; use "
                          "attention_ref for tensors on the host")

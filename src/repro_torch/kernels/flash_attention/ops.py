@@ -5,12 +5,35 @@ on a CUDA tensor through here.
 Unlike the JAX package's dispatcher, there is no fallback for a sequence
 length that is not a multiple of the block: the CUDA kernel masks its own
 ragged edge, so a CUDA tensor takes the kernel at every S.
+
+The kernel route is differentiable: ``_KernelAttention`` runs the CUDA
+kernel forward and, in the backward, recomputes ``attention_ref`` on the
+saved inputs and takes its vjp (``kernels/_autograd.py``).
 """
 
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels._autograd import recompute_vjp
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+
+
+class _KernelAttention(torch.autograd.Function):
+    """The CUDA kernel forward; the backward is the vjp of
+    ``attention_ref`` recomputed on the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap)
+        return flash_attention(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (*recompute_vjp(attention_ref, ctx, grad_out, **ctx.kw),
+                None, None, None)
 
 
 def attention_op(q, k, v, *, causal=True, window=0, softcap=0.0,
@@ -21,15 +44,17 @@ def attention_op(q, k, v, *, causal=True, window=0, softcap=0.0,
     version for CPU tensors; "kernel" -> the CUDA kernel (raises on CPU
     tensors: there is no interpret mode); "ref" -> the plain version on any
     device. A kernel that fails to build or launch raises; nothing falls
-    back to the plain version.
+    back to the plain version. Both routes differentiate: the kernel's
+    backward recomputes the plain version (``_KernelAttention``).
 
-    Launches are counted in ``flash_attention.launches``.
+    Launches are counted in ``flash_attention.launches``: the forward's, and
+    again a recomputed forward's under ``torch.utils.checkpoint``; the
+    backward launches none.
     """
     if backend == "auto":
         backend = "kernel" if q.is_cuda else "ref"
     if backend == "kernel":
-        return flash_attention(q, k, v, causal=causal, window=window,
-                               softcap=softcap)
+        return _KernelAttention.apply(q, k, v, causal, window, softcap)
     if backend != "ref":
         raise ValueError(f"unknown attention backend: {backend!r}")
     return attention_ref(q, k, v, causal=causal, window=window,

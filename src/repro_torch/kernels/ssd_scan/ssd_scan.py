@@ -8,7 +8,8 @@ P-split); bf16 runs on the tensor cores, f32 on the CUDA cores.
 
 The kernel is built with ``nvcc`` on first use (``kernels/_build.py``) and
 called through ``ctypes`` on PyTorch's current stream. It takes CUDA
-tensors only; anything else raises.
+tensors only; anything else raises. It computes no gradient:
+``ops.ssd_scan_op`` wraps it in the autograd function that does.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._autograd import check_no_grad
 
 #: kernel launches since the last reset (one per Mamba-2 block a forward)
 launches = 0
@@ -52,8 +54,11 @@ def _lib() -> ctypes.CDLL:
 def ssd_scan(x, dt, A, B, C):
     """x: [B,S,H,P]; dt: [B,S,H] f32; A: [H] f32; B, C: [B,S,N]; x, B and
     C of one dtype (f32 or bf16), all contiguous on one CUDA device, x, B
-    and C 16-byte aligned -> y [B,S,H,P] in x's dtype."""
+    and C 16-byte aligned -> y [B,S,H,P] in x's dtype. The output has no
+    ``grad_fn``: under grad mode an input that requires grad raises
+    (``ops.ssd_scan_op`` differentiates)."""
     global launches
+    check_no_grad("ssd_scan", "ops.ssd_scan_op", x, dt, A, B, C)
     if not isinstance(x, torch.Tensor) or not x.is_cuda:
         raise ValueError("ssd_scan runs on CUDA tensors only; use "
                          "ssd_scan_ref for tensors on the host")

@@ -8,7 +8,8 @@ ragged edges. ``LANES`` lanes of a warp share a channel's state.
 
 The kernel is built with ``nvcc`` on first use (``kernels/_build.py``) and
 called through ``ctypes`` on PyTorch's current stream. It takes CUDA
-tensors only; anything else raises.
+tensors only; anything else raises. It computes no gradient:
+``ops.ssm_scan_op`` wraps it in the autograd function that does.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._autograd import check_no_grad
 
 #: kernel launches since the last reset (one per Mamba-1 block a forward)
 launches = 0
@@ -54,8 +56,11 @@ def _lib() -> ctypes.CDLL:
 def ssm_scan(u, dt, A, B, C):
     """u, dt: [B,S,di]; A: [di,N] f32; B, C: [B,S,N]; u, dt, B and C of one
     dtype (f32 or bf16), contiguous and 16-byte aligned, on one CUDA device
-    -> y [B,S,di] in u's dtype."""
+    -> y [B,S,di] in u's dtype. The output has no ``grad_fn``: under grad
+    mode an input that requires grad raises (``ops.ssm_scan_op``
+    differentiates)."""
     global launches
+    check_no_grad("ssm_scan", "ops.ssm_scan_op", u, dt, A, B, C)
     if not isinstance(u, torch.Tensor) or not u.is_cuda:
         raise ValueError("ssm_scan runs on CUDA tensors only; use "
                          "ssm_scan_ref for tensors on the host")

@@ -1,1 +1,2 @@
-"""Launchers of the port: the serving launcher (``serve.py``)."""
+"""Launchers of the port: the serving launcher (``serve.py``) and the
+trainer (``train.py``)."""

@@ -11,8 +11,10 @@ scan kernels (``kernels/ssm_scan/ops.py::ssm_scan_op`` and
 applies before its TPU kernels: Mamba-1 passes dt, B and C in the
 activation dtype (in bf16, dt is rounded to bf16), Mamba-2 passes B and C
 in the activation dtype and keeps dt in f32. A CPU tensor takes the
-chunked forms ``_selective_scan_chunked`` and ``_ssd_chunked``, as the JAX
-package does off the TPU. Either way the sequence must be a multiple of
+chunked forms ``_selective_scan_chunked`` and ``_ssd_chunked`` (which
+``kernels/ssd_scan/ref.py`` holds as ``ssd_chunked_ref``, since the
+kernel's backward recomputes it), as the JAX package does off the TPU.
+Both routes differentiate. Either way the sequence must be a multiple of
 ``SSMDims.chunk``, as the JAX package's chunked forms assert.
 
 Single-token decode is the exact recurrence (O(1) state per token).
@@ -26,6 +28,7 @@ import math
 import torch
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref as _ssd_chunked
 from repro_torch.kernels.ssm_scan.ops import ssm_scan_op
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.models.layers import act_fn, normal_init, rms_norm
@@ -203,44 +206,6 @@ def mamba1_decode(p, x, dims: SSMDims, h, conv_buf):
 # Mamba-2: SSD (chunked block decomposition)
 # ---------------------------------------------------------------------------
 
-def _ssd_chunked(xh, dt, A, B, C, chunk: int):
-    """SSD scan. xh: [B,S,H,P]; dt: [B,S,H]; A: [H] (negative); B, C:
-    [B,S,N] (one state group) -> y [B,S,H,P] in xh's dtype."""
-    Bsz, S, H, P = xh.shape
-    _check_chunked(S, chunk)
-    nchunks = S // chunk
-    l = (dt * A[None, None]).float().reshape(Bsz, nchunks, chunk, H)
-    Lcum = torch.cumsum(l, dim=2)                             # [B,nc,C,H]
-    xc_all = xh.float().reshape(Bsz, nchunks, chunk, H, P)
-    dt_c = dt.float().reshape(Bsz, nchunks, chunk, H)
-    B_c = B.float().reshape(Bsz, nchunks, chunk, -1)
-    C_c = C.float().reshape(Bsz, nchunks, chunk, -1)
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=xh.device))
-    h = torch.zeros((Bsz, H, P, B.shape[-1]), dtype=torch.float32,
-                    device=xh.device)
-    ys = []
-    for c in range(nchunks):
-        Lc, xc, dtc = Lcum[:, c], xc_all[:, c], dt_c[:, c]
-        Bc, Cc = B_c[:, c], C_c[:, c]
-        # intra-chunk: masked decay matrix M[t,s] = exp(L_t - L_s), s <= t
-        diff = Lc[:, :, None, :] - Lc[:, None, :, :]          # [B,t,s,H]
-        M = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
-        G = torch.einsum("btn,bsn->bts", Cc, Bc)
-        W = G[:, :, :, None] * M * dtc[:, None, :, :]         # [B,t,s,H]
-        y_intra = torch.einsum("btsh,bshp->bthp", W, xc)
-        # inter-chunk: contribution of the carried state
-        y_inter = (torch.einsum("btn,bhpn->bthp", Cc, h)
-                   * torch.exp(Lc)[..., None])
-        # new carry
-        decay_to_end = torch.exp(Lc[:, -1:, :] - Lc)          # [B,s,H]
-        S_c = torch.einsum("bsh,bsn,bshp->bhpn", decay_to_end * dtc, Bc, xc)
-        h = torch.exp(Lc[:, -1])[:, :, None, None] * h + S_c
-        ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
-    return y.to(xh.dtype)
-
-
 def mamba2_forward(p, x, dims: SSMDims, backend: str = "auto"):
     """Full-sequence Mamba-2 block. x: [B,S,D] -> [B,S,D]. ``backend`` is
     passed to ``ssd_scan_op`` for CUDA tensors."""
@@ -259,7 +224,7 @@ def mamba2_forward(p, x, dims: SSMDims, backend: str = "auto"):
         y = ssd_scan_op(
             xh.contiguous(), dt.contiguous(), A,
             Bm.to(xh.dtype).contiguous(), Cm.to(xh.dtype).contiguous(),
-            backend=backend,
+            backend=backend, chunk=dims.chunk,
         )
     else:
         y = _ssd_chunked(xh, dt, A, Bm, Cm, dims.chunk)

@@ -31,12 +31,18 @@ they are plain jnp in the reference. Decode updates the state's caches and
 recurrent states in place (``decode_step``); the encoder-decoder's decode
 attends to ``state["memory"]``, which ``init_decode_state`` zeroes and
 nothing fills, as in the reference.
+
+``loss`` is the reference's training loss, with ``forward(remat=True)``
+recomputing the blocks the reference's ``jax.checkpoint`` recomputes.
+Parameters are built with ``requires_grad=False`` for serving;
+``launch/train.py`` turns them on.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -208,7 +214,7 @@ class SSMBlock(nn.Module):
 
 class Model(nn.Module):
     """Model of every family: dense, VLM, MoE (with or without MLA),
-    encoder-decoder, SSM and hybrid.
+    encoder-decoder, SSM and hybrid: forward, loss and decode.
 
     ``device`` None -> CUDA (raises without it). ``backend`` is passed to
     every kernel dispatcher for CUDA tensors ("auto"/"kernel": the CUDA
@@ -286,15 +292,29 @@ class Model(nn.Module):
         logits = torch.einsum("bsd,dv->bsv", x, unembed)
         return softcap(logits, cfg.final_logit_softcap)
 
-    def forward(self, batch: dict):
+    def forward(self, batch: dict, remat: bool = False):
         """Returns (logits [B,S,V], aux_loss): aux the sum of the MoE
         layers' load-balance losses (f32, 0 without MoE). ``batch`` carries
         ``tokens`` [B,S_text] and ``media`` [B,S_media,D]: VLM patch
         embeddings, placed before the text (optional), or the
         encoder-decoder's audio frames, which the encoder runs over
         (required; S_media may be 0). An SSM or hybrid sequence must be a
-        multiple of ``cfg.ssm_chunk``."""
+        multiple of ``cfg.ssm_chunk``.
+
+        ``remat`` recomputes in the backward what the reference's
+        ``jax.checkpoint`` recomputes, and nothing else: each block of the
+        SSM stack, the encoder, the decoder and the main stack, and each
+        hybrid group together with its shared-attention call, run under
+        ``torch.utils.checkpoint``; the hybrid's tail blocks and a MoE
+        model's leading dense layers do not. A recomputed block launches
+        its kernels again."""
         cfg, backend = self.cfg, self.backend
+
+        def run(fn, *args, **kw):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False, **kw)
+            return fn(*args, **kw)
+
         x = self.embed[batch["tokens"].long()]
         if cfg.frontend == "vision" and "media" in batch:
             x = torch.cat([batch["media"].to(x.dtype), x], dim=1)
@@ -304,12 +324,15 @@ class Model(nn.Module):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.arch_type == "ssm":
             for block in self.ssm_stack:
-                x = block(x, cfg, backend)
+                x = run(block, x, cfg, backend)
         elif cfg.arch_type == "hybrid":
-            for group in self.groups:
+            def group_body(h, group):
                 for block in group:
-                    x = block(x, cfg, backend)
-                x, _ = self.shared_attn(x, cfg, positions, -1, backend)
+                    h = block(h, cfg, backend)
+                return self.shared_attn(h, cfg, positions, -1, backend)[0]
+
+            for group in self.groups:
+                x = run(group_body, x, group)
             for block in self.tail:
                 x = block(x, cfg, backend)
         elif cfg.is_encoder_decoder:
@@ -317,9 +340,10 @@ class Model(nn.Module):
             mem_pos = torch.arange(mem.shape[1], dtype=torch.int32,
                                    device=x.device).expand(mem.shape[:2])
             for block in self.enc_layers:
-                mem, _ = block(mem, cfg, mem_pos, -1, backend, causal=False)
+                mem, _ = run(block, mem, cfg, mem_pos, -1, backend,
+                             causal=False)
             for block in self.dec_layers:
-                x, _ = block(x, cfg, positions, -1, backend, memory=mem)
+                x, _ = run(block, x, cfg, positions, -1, backend, memory=mem)
         else:
             # the dense layers global; the stack's windows from its index
             # 0, as in the reference's forward (its decode counts from the
@@ -327,11 +351,33 @@ class Model(nn.Module):
             for block in self.dense_layers:
                 x, _ = block(x, cfg, positions, -1, backend)
             for i, block in enumerate(self.layers):
-                x, aux = block(x, cfg, positions, cfg.window_for_layer(i),
-                               backend)
+                x, aux = run(block, x, cfg, positions,
+                             cfg.window_for_layer(i), backend)
                 if aux is not None:
                     aux_total = aux_total + aux
         return self._logits(x), aux_total
+
+    # -- loss -----------------------------------------------------------------
+
+    def loss(self, batch: dict, remat: bool = True):
+        """The reference's training loss: the mean cross-entropy of the
+        text positions (a media prefix carries no labels) against
+        ``batch["labels"]`` [B,S_text], labels < 0 masked out, in f32, plus
+        ``router_aux_weight`` times the MoE aux loss.
+
+        The reference gathers at label -1 with ``jnp.take_along_axis``,
+        which wraps it to the last class before the mask zeroes the term;
+        ``torch.gather`` refuses it, so the labels are clamped to 0 for the
+        gather, under the same mask."""
+        cfg = self.cfg
+        logits, aux = self.forward(batch, remat=remat)
+        labels = batch["labels"].long()
+        logits_txt = logits[:, logits.shape[1] - labels.shape[1]:, :]
+        logp = torch.log_softmax(logits_txt.float(), dim=-1)
+        ll = torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        ce = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        return ce + cfg.router_aux_weight * aux
 
     # -- decode ---------------------------------------------------------------
 

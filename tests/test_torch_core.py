@@ -272,7 +272,8 @@ def test_port_imports_without_jax_or_repro():
     ``repro`` cannot be imported at all: the fleet path, the serving path
     with its model substrate and attention kernel, the MoE, SSM and
     hybrid families with their scan and decode kernels, the window query
-    and the launch geometry checker with its fixture."""
+    and the launch geometry checker with its fixture, and training (the
+    optimizer, data, checkpoints and the trainer)."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -317,5 +318,7 @@ def test_port_imports_without_jax_or_repro():
                  "kernels.window_query.ops", "kernels.window_query.ref",
                  "kernels.window_query.geometry",
                  "kernels.placement.geometry", "analysis.launch_check",
-                 "analysis.cli", "analysis.fixtures.racy_kernel"):
+                 "analysis.cli", "analysis.fixtures.racy_kernel",
+                 "kernels._autograd", "optim.adamw", "data.pipeline",
+                 "checkpoint.checkpoint", "launch.train"):
         assert f"repro_torch.{name}" in names, name
