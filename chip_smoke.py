@@ -161,7 +161,21 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    models' weights equal bit for bit; a bf16 checkpoint of the full-width
    qwen2.5-3b cut to 2 layers saved under the git-ignored build/ and
    restored bit for bit; and each differentiated kernel route's backward
-   (the plain version recomputed, no launch) timed at its leg's shape.
+   (the plain version recomputed, no launch) timed at its leg's shape;
+23. dryrun: ``launch.dryrun.dry_run_one`` traces, on ``meta``, the full
+   qwen2.5-3b's training step at 1 x 4096 and the full zamba2-7b's
+   prefill at 1 x 4096; the same steps (``launch.dryrun.build``) then
+   run on the card: the record's argument bytes must equal the card's
+   parameter, moment, batch and state bytes; on the plain route
+   (``backend="ref"``, no launch; zamba2's at 1 x 1024, traced there
+   too, since its SSD steps through the oracle one token at a time) the
+   traced peak must lie within 10% of ``max_memory_allocated`` (reset
+   after the build, less what earlier phases left allocated); on the
+   kernel route
+   (72 ``flash_attention`` a qwen step; 81 ``ssd_scan`` and 13
+   ``flash_attention`` a zamba2 prefill) the median of 3 timed steps must
+   take no less than the record's bound, ``max(compute_s, memory_s)``;
+   each step's share of the bound and both routes' peaks printed.
 
 Every phase line carries ``elapsed_s``, the seconds since the start. Then
 one ``{"kernels": [...]}`` line, and as the last line
@@ -184,19 +198,24 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.roofline.terms import (  # noqa: E402  (the H100 peaks)
+    BF16_OPS_PER_S,
+    BOOST_CLOCK_HZ,
+    EX2_PER_CLOCK_SM,
+    FP32_OPS_PER_S,
+    HBM_BYTES_PER_S,
+    SMS,
+)
+
 B_MAIN = 8192
 N_FRAMES = 95
 FUSED_PER_TICK = 21               # 1 re-queue + 4 devices x (1 + 4)
 HP_QUERIES_PER_TICK = 4           # one window query a device
-HBM_BYTES_PER_S = 3.35e12         # H100 SXM, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12            # H100 SXM, non-tensor f32
-BF16_OPS_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
 #: f32 instructions a second: 67 TFLOP/s counts an FMA as two operations;
 #: an FMA, a multiply or an add is one instruction
 FP32_INSTR_PER_S = FP32_OPS_PER_S / 2
-SMS = 132                         # H100 SXM
-BOOST_CLOCK_HZ = 1.98e9           # H100 SXM, data sheet's maximum boost
-EX2_PER_CLOCK_SM = 16             # special-function unit results a clock
 SERVE_PERIODS = 40
 L2_FLUSH_BYTES = 64 << 20         # written between cold launches (L2 50 MB)
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
@@ -2709,11 +2728,149 @@ def train_phase(dev) -> tuple[dict, dict]:
     return by_path, backward_recompute_ms(dev)
 
 
+DRY_PEAK_TOL = 0.10               # traced peak vs the plain route's card peak
+DRY_TIMED_RUNS = 3                # kernel-route steps timed (median)
+#: zamba2's plain-route prefill: its SSD is the step-by-step oracle
+#: ``ssd_scan_ref``, 81 x 4096 steps at 1 x 4096 (107 s on an NVIDIA H100
+#: 80GB HBM3 at 700 W)
+DRY_PLAIN_SSD_SEQ = 1024
+
+
+def dryrun_run(dev, cfg, shape, backend: str, runs: int, want: dict,
+               rec: dict) -> dict:
+    """``launch/dryrun.py::build``'s step of ``cfg`` at ``shape`` on the
+    card (weights drawn there) on ``backend``, run ``runs`` times from a
+    peak reset after the build. Checks the argument bytes against the
+    record ``rec`` and the launches, ``want`` each run. Memory is counted
+    from what the card held before the build (earlier phases leave some
+    allocated), as the trace counts the step's own storages."""
+    from repro_torch.launch.dryrun import build
+    from repro_torch.roofline.trace import tensor_bytes
+
+    free_card()
+    base = torch.cuda.memory_allocated()
+    step, args = build(cfg, shape, device=dev, backend=backend)
+    arg_bytes = tensor_bytes(args)
+    check(arg_bytes == rec["arg_bytes_global"],
+          f"{cfg.name} {shape.name}: the card's argument bytes {arg_bytes}, "
+          f"the record's {rec['arg_bytes_global']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    built = torch.cuda.memory_allocated() - base
+    step_s = []
+    for _ in range(runs):
+        reset_counts()
+        step_s.append(timed(step)[1])
+        launched = nonzero_counts()
+        check(launched == want, f"{cfg.name} {shape.name} ({backend}): "
+                                f"launched {launched} a step, not {want}")
+    peak = torch.cuda.max_memory_allocated() - base
+    del step, args
+    free_card()
+    return {"step_s": step_s, "peak": peak, "built": built, "base": base,
+            "arg_bytes": arg_bytes, "launches": launched}
+
+
+def dryrun_leg(dev, arch: str, shape, want: dict, reduced: list,
+               plain_shape=None) -> dict:
+    """Phase 23 for one (arch, cut shape): ``dry_run_one`` on ``meta``,
+    then the same step on the card: once on the plain route (at
+    ``plain_shape`` when given, traced there too), where the traced peak
+    must lie within DRY_PEAK_TOL of ``max_memory_allocated`` (reset
+    after the build, less what the card held before it) and no kernel
+    may launch; then on the kernel
+    route, ``want`` launches a step, where the median of DRY_TIMED_RUNS
+    steps (after one warm step) must take no less than the record's bound.
+    The argument bytes of both runs must be their record's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import dry_run_one
+
+    cfg = get_config(arch)
+    rec = dry_run_one(arch, shape, out_dir=None, verbose=False)
+    roof = rec["roofline"]
+    bound_s = max(roof["compute_s"], roof["memory_s"])
+    plain_shape = plain_shape or shape
+    plain_rec = rec if plain_shape is shape else dry_run_one(
+        arch, plain_shape, out_dir=None, verbose=False)
+    plain = dryrun_run(dev, cfg, plain_shape, "ref", 1, {}, plain_rec)
+    kern = dryrun_run(dev, cfg, shape, "auto", 1 + DRY_TIMED_RUNS, want, rec)
+    traced = plain_rec["memory"]["peak_size_in_bytes"]
+    ratio = traced / plain["peak"]
+    timed_s = sorted(kern["step_s"][1:])
+    median_s = timed_s[len(timed_s) // 2]
+    row = {"phase": "dryrun", "arch": arch, "shape": shape.name,
+           "kind": shape.kind,
+           "tokens": [shape.global_batch, shape.seq_len],
+           "trace_s": rec["lower_s"],
+           "dot_flops": roof["hlo_flops_per_chip"],
+           "dot_bytes": roof["dot_bytes_per_chip"],
+           "model_flops": roof["model_flops"],
+           "compute_ms": 1e3 * roof["compute_s"],
+           "memory_ms": 1e3 * roof["memory_s"],
+           "bound_ms": 1e3 * bound_s, "bottleneck": roof["bottleneck"],
+           "arg_bytes": rec["arg_bytes_global"],
+           "card_arg_bytes": kern["arg_bytes"],
+           "allocated_before_build": kern["base"],
+           "allocated_after_build": kern["built"],
+           "traced_peak_gb": rec["memory"]["peak_size_in_bytes"] / 1e9,
+           "kernel_peak_gb": kern["peak"] / 1e9,
+           "kernel_step_ms": [1e3 * x for x in kern["step_s"]],
+           "kernel_step_ms_median": 1e3 * median_s,
+           "kernel_share_of_bound": bound_s / median_s,
+           "kernel_launches": kern["launches"],
+           "plain_shape": plain_shape.name,
+           "plain_trace_s": plain_rec["lower_s"],
+           "plain_traced_peak_gb": traced / 1e9,
+           "plain_peak_gb": plain["peak"] / 1e9,
+           "traced_over_plain_peak": ratio,
+           "plain_step_ms": 1e3 * plain["step_s"][0],
+           "reduced": reduced}
+    emit(row)
+    check(abs(ratio - 1.0) <= DRY_PEAK_TOL,
+          f"{arch} {plain_shape.name}: traced peak {traced}, the plain "
+          f"route's {plain['peak']} on the card ({ratio:.3f})")
+    check(median_s >= bound_s,
+          f"{arch} {shape.name}: the kernel route's step {median_s} s beats "
+          f"its bound {bound_s} s: the trace undercounts")
+    return kern["launches"]
+
+
+def dryrun_phase(dev) -> dict:
+    """Phase 23: the dry run held to the card. The full qwen2.5-3b's
+    training step at 1 x TRAIN_SEQ and the full zamba2-7b's prefill at 1 x
+    SEQ (its plain route at 1 x DRY_PLAIN_SSD_SEQ), each traced on
+    ``meta`` and run on the card (``dryrun_leg``). Returns each leg's
+    kernel-route launches a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import InputShape
+
+    qcfg = get_config("qwen2.5-3b")
+    zcfg = get_config("zamba2-7b")
+    L = qcfg.n_layers
+    n_attn = zcfg.n_layers // zcfg.shared_attn_every
+    return {
+        "qwen2.5-3b train step": dryrun_leg(
+            dev, "qwen2.5-3b",
+            InputShape(f"train_1x{TRAIN_SEQ}", TRAIN_SEQ, 1, "train"),
+            {"flash_attention": 2 * L, "flash_attention_wgmma": 2 * L},
+            [f"batch 1 x {TRAIN_SEQ} (source shape TRAIN_4K: 256 x 4096)"]),
+        "zamba2-7b prefill": dryrun_leg(
+            dev, "zamba2-7b",
+            InputShape(f"prefill_1x{SEQ}", SEQ, 1, "prefill"),
+            {"ssd_scan": zcfg.n_layers, "flash_attention": n_attn,
+             "flash_attention_wgmma": n_attn},
+            [f"batch 1 x {SEQ} (source shape PREFILL_32K: 32 x 32768)",
+             f"the plain route at 1 x {DRY_PLAIN_SSD_SEQ}: its SSD steps "
+             "through ssd_scan_ref one token at a time"],
+            plain_shape=InputShape(f"prefill_1x{DRY_PLAIN_SSD_SEQ}",
+                                   DRY_PLAIN_SSD_SEQ, 1, "prefill")),
+    }
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.carry import fleet_to_numpy
     from repro_torch.fleet import FleetParams, SweepConfig, fleet_run
     from repro_torch.fleet import make_fleet, run_sweep
@@ -3093,6 +3250,9 @@ def main() -> None:
     # -- 22. training -----------------------------------------------------------
     train_by_path, backward_rows = train_phase(dev)
     launches_by_path.update(train_by_path)
+
+    # -- 23. the dry run on the card -----------------------------------------
+    dryrun_phase(dev)
 
     def fleet_counts_by_path(name):
         """A fleet kernel's launches on each fleet path but the main one."""

@@ -3,24 +3,41 @@ report, one exit code.
 
     PYTHONPATH=src python -m repro_torch.analysis                 # must pass
     PYTHONPATH=src python -m repro_torch.analysis --fixture race  # must fail
+    REPRO_ANALYSIS_FIXTURE=oob,alias python -m repro_torch.analysis
 
-Prints the report and exits 1 on any violation. The geometry part of the
-JAX package's ``analysis/cli.py``; its ``jaxlint`` pass is specific to JAX
-and XLA and has no counterpart.
+Prints the report, writes it to ``results/analysis/analysis_report.json``
+(``--report-dir``; '' writes nothing) and exits 1 on any violation.
+Fixtures come from ``--fixture`` and from the comma-separated
+``REPRO_ANALYSIS_FIXTURE``, merged. The geometry part of the JAX package's
+``analysis/cli.py``; its ``jaxlint`` pass is specific to JAX and XLA and
+has no counterpart, so the report has no ``lint`` key.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 
 from repro_torch.analysis import launch_check
 from repro_torch.analysis.fixtures import GEOMETRY_FIXTURES
 
 
-def run_analysis(fixtures: tuple[str, ...] = ()) -> dict:
-    """The checker's report over the production registry plus the named
-    fixtures (key ``ok``)."""
+ENV_FIXTURE = "REPRO_ANALYSIS_FIXTURE"
+
+
+def env_fixtures() -> tuple[str, ...]:
+    """The fixtures named in ``REPRO_ANALYSIS_FIXTURE`` (comma-separated)."""
+    raw = os.environ.get(ENV_FIXTURE, "")
+    return tuple(f for f in (s.strip() for s in raw.split(",")) if f)
+
+
+def run_analysis(fixtures: tuple[str, ...] = (), *,
+                 report_dir: str = "results/analysis") -> dict:
+    """The report over the production registry plus the named fixtures
+    (keys ``ok``, ``fixtures``, ``geometry``), written to
+    ``report_dir/analysis_report.json`` unless ``report_dir`` is ''."""
     unknown = sorted(set(fixtures) - set(GEOMETRY_FIXTURES))
     if unknown:
         raise ValueError(f"unknown fixture(s) {unknown}; known: "
@@ -32,17 +49,25 @@ def run_analysis(fixtures: tuple[str, ...] = ()) -> dict:
         )
         for f in fixtures:
             providers[f"fixture_{f}"] = GEOMETRY_PROVIDERS[f]
-    return launch_check.check_all(providers)
+    geometry = launch_check.check_all(providers)
+    report = {"ok": bool(geometry["ok"]), "fixtures": list(fixtures),
+              "geometry": geometry}
+    if report_dir:
+        os.makedirs(report_dir, exist_ok=True)
+        with open(os.path.join(report_dir, "analysis_report.json"), "w") as f:
+            json.dump(report, f, indent=1)
+    return report
 
 
 def print_report(report: dict) -> None:
-    points = sum(k["grid_points_checked"] for k in report["kernels"].values())
-    print(f"launch geometry: {report['n_kernels']} kernels, {points} blocks, "
-          f"{report['n_violations']} violation(s)")
-    for name, k in report["kernels"].items():
+    geo = report["geometry"]
+    points = sum(k["grid_points_checked"] for k in geo["kernels"].values())
+    print(f"launch geometry: {geo['n_kernels']} kernels, {points} blocks, "
+          f"{geo['n_violations']} violation(s)")
+    for name, k in geo["kernels"].items():
         print(f"  {name}: {len(k['cases'])} case(s), "
               f"{k['grid_points_checked']} blocks")
-    for v in report["violations"]:
+    for v in geo["violations"]:
         print(f"  [{v['kind']}] {v['kernel']}/{v['case']}: {v['detail']}")
     print("analysis:", "OK" if report["ok"] else "FAILED")
 
@@ -56,8 +81,12 @@ def main(argv=None) -> int:
                     choices=list(GEOMETRY_FIXTURES), metavar="NAME",
                     help="include a seeded-violation fixture "
                          f"({', '.join(GEOMETRY_FIXTURES)}); repeatable")
+    ap.add_argument("--report-dir", default="results/analysis",
+                    help="where to write analysis_report.json "
+                         "('' disables)")
     args = ap.parse_args(argv)
-    report = run_analysis(tuple(dict.fromkeys(args.fixture)))
+    fixtures = tuple(dict.fromkeys((*args.fixture, *env_fixtures())))
+    report = run_analysis(fixtures, report_dir=args.report_dir)
     print_report(report)
     return 0 if report["ok"] else 1
 

@@ -1,3 +1,7 @@
-"""The port's synthetic training data (``pipeline.py``)."""
+"""The port's synthetic training data and the dry run's input stand-ins
+(``pipeline.py``)."""
 
-from repro_torch.data.pipeline import SyntheticCorpus  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    SyntheticCorpus,
+    make_batch_specs,
+)

@@ -1,9 +1,9 @@
 """Deterministic synthetic data pipeline: the port of
-``repro/data/pipeline.py``'s ``SyntheticCorpus``, the same numpy code, so
-that a seed gives the reference's batches bit for bit. Batches are numpy;
-``launch/train.py`` moves them to the device. ``make_batch_specs``, the
-dry run's ``jax.ShapeDtypeStruct`` stand-ins, is left for the port's dry
-run.
+``repro/data/pipeline.py``. ``SyntheticCorpus`` is the same numpy code, so
+that a seed gives the reference's batches bit for bit; its batches are
+numpy, and ``launch/train.py`` moves them to the device.
+``make_batch_specs`` gives the dry run's inputs as ``meta`` tensors, the
+counterparts of the reference's ``jax.ShapeDtypeStruct`` stand-ins.
 
 Generates Zipf-distributed token "documents" with induced bigram structure
 (so perplexity can actually fall during the example training runs),
@@ -18,8 +18,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import InputShape, ModelConfig
 
 
 @dataclasses.dataclass
@@ -62,3 +63,29 @@ class SyntheticCorpus:
                 (B, S // 4, self.cfg.d_model), np.float32
             )
         return batch
+
+
+def make_batch_specs(cfg: ModelConfig, shape: InputShape) -> dict:
+    """Stand-ins on ``meta`` (no allocation) for every model input of
+    (cfg, shape): the dry run's inputs, with the reference's keys, shapes
+    and dtypes. int32 ``tokens`` (and ``labels`` to train)
+    [B, S] with a vision config's ``n_media_tokens`` taken off the text;
+    bf16 ``media``, the vision patches or S // 4 audio frames; a decode
+    step's ``tokens`` [B]."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def spec(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": spec((B,))}
+    text_len = S - (cfg.n_media_tokens if cfg.frontend == "vision" else 0)
+    specs = {"tokens": spec((B, text_len))}
+    if shape.kind == "train":
+        specs["labels"] = spec((B, text_len))
+    if cfg.frontend == "vision":
+        specs["media"] = spec((B, cfg.n_media_tokens, cfg.d_model),
+                              torch.bfloat16)
+    elif cfg.frontend == "audio":
+        specs["media"] = spec((B, S // 4, cfg.d_model), torch.bfloat16)
+    return specs

@@ -1,2 +1,2 @@
-"""Launchers of the port: the serving launcher (``serve.py``) and the
-trainer (``train.py``)."""
+"""Launchers of the port: the serving launcher (``serve.py``), the
+trainer (``train.py``) and the dry run (``dryrun.py``)."""

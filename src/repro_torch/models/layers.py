@@ -113,7 +113,10 @@ class AttnDims:
 
 def normal_init(gen, shape, scale, dtype, device):
     """N(0, scale²) drawn in f32 from ``gen`` on the generator's device,
-    then moved to ``device`` in ``dtype``."""
+    then moved to ``device`` in ``dtype``. On the ``meta`` device nothing
+    is drawn (``gen`` may be None): an empty tensor of the shape."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device) * scale
     return x.to(device=device, dtype=dtype)

@@ -134,9 +134,70 @@ def _selective_scan_chunked(u, dt, A, B, C, chunk: int):
     The JAX package carries the state ``h [B,di,N]`` (f32) across chunks
     and runs an associative scan inside each; here the plain version of the
     scan kernel runs the recurrence step by step throughout, the same
-    function summed in another order."""
+    function summed in another order. A ``meta`` tensor (the dry run's
+    trace, ``launch/dryrun.py``) takes ``_selective_scan_blocked``, the
+    reference's form, whose ops and shapes it counts: the step oracle
+    would trace a run of ops a token, 32 x 32768 of them at
+    ``PREFILL_32K``."""
     _check_chunked(u.shape[1], chunk)
+    if u.is_meta:
+        return _selective_scan_blocked(u, dt, A, B, C, chunk)
     return ssm_scan_ref(u, dt, A, B, C)
+
+
+def _selective_scan_blocked(u, dt, A, B, C, chunk: int):
+    """The reference's chunked selective scan, op for op at its shapes:
+    the decay ``a`` and input ``b`` [B,S,di,N] in f32, an inclusive scan
+    of (a, b) pairs within each chunk (log2(chunk) doubling steps, each
+    combining ``(a_l, b_l), (a_r, b_r) -> (a_l a_r, b_r + a_r b_l)``), the
+    carried state ``h [B,di,N]`` applied to the chunk, and the
+    ``bcdn,bcn->bcd`` product with C. The same function as
+    ``ssm_scan_ref``."""
+    Bsz, S, di = u.shape
+    N = A.shape[-1]
+    nchunks = S // chunk
+    a = torch.exp(dt[..., None].float() * A[None, None])      # [B,S,di,N]
+    b = (dt * u)[..., None].float() * B[:, :, None, :]
+    a = a.reshape(Bsz, nchunks, chunk, di, N)
+    b = b.reshape(Bsz, nchunks, chunk, di, N)
+    Cc = C.float().reshape(Bsz, nchunks, chunk, N)
+    h = torch.zeros((Bsz, di, N), dtype=torch.float32, device=u.device)
+    ys = []
+    for c in range(nchunks):
+        acc_a, acc_b = a[:, c], b[:, c]                       # [B,chunk,di,N]
+        k = 1
+        while k < chunk:
+            acc_b = torch.cat([acc_b[:, :k], acc_b[:, k:]
+                               + acc_a[:, k:] * acc_b[:, :-k]], dim=1)
+            acc_a = torch.cat([acc_a[:, :k],
+                               acc_a[:, k:] * acc_a[:, :-k]], dim=1)
+            k *= 2
+        h_t = acc_a * h[:, None] + acc_b
+        ys.append(_ChunkReadout.apply(h_t, Cc[:, c]))
+        h = h_t[:, -1]
+    return torch.stack(ys, dim=1).reshape(Bsz, S, di).to(u.dtype)
+
+
+class _ChunkReadout(torch.autograd.Function):
+    """``einsum("bcdn,bcn->bcd", h, C)``, the read-out of a chunk's
+    states, with the vjp of the reference's compiled program: the
+    cotangent of ``h`` a broadcast product (it has no contraction, and XLA
+    computes it without a dot), that of ``C`` a product over d. Autograd
+    of the einsum would run both as matmuls."""
+
+    @staticmethod
+    def forward(ctx, h, C):
+        ctx.save_for_backward(h, C)
+        return torch.einsum("bcdn,bcn->bcd", h, C)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, C = ctx.saved_tensors
+        dh = g[..., None] * C[:, :, None, :] if ctx.needs_input_grad[0] \
+            else None
+        dC = torch.einsum("bcd,bcdn->bcn", g, h) \
+            if ctx.needs_input_grad[1] else None
+        return dh, dC
 
 
 def _dt_softplus(dt_raw, dt_bias):

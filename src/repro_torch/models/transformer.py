@@ -105,6 +105,14 @@ def _ssm_dims(cfg: ModelConfig, version: int | None = None) -> SSMDims:
     )
 
 
+def _generator(init_device, seed: int, device: torch.device):
+    """The seeded generator the weights are drawn from; None for a model
+    on ``meta``, which draws nothing."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(init_device).manual_seed(seed)
+
+
 def _params(tensors: dict) -> nn.ParameterDict:
     return nn.ParameterDict(
         {k: nn.Parameter(v, requires_grad=False) for k, v in tensors.items()})
@@ -224,7 +232,9 @@ class Model(nn.Module):
     ``load_state_dict`` (``carry.py``). The default, the CPU, gives the
     same weights for a seed on every device; drawing on the card
     (``init_device=device``) builds a 7 B model in a fraction of a second,
-    with other weights for the same seed.
+    with other weights for the same seed. On ``meta`` (the dry run,
+    ``launch/dryrun.py``) nothing is drawn: every parameter is an empty
+    tensor of its shape.
     """
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0, device=None,
@@ -233,7 +243,7 @@ class Model(nn.Module):
         self.cfg = cfg
         self.backend = backend
         device = resolve_device(device)
-        self._build(torch.Generator(init_device).manual_seed(seed), device)
+        self._build(_generator(init_device, seed, device), device)
 
     def _build(self, gen, device) -> None:
         cfg = self.cfg
@@ -281,7 +291,7 @@ class Model(nn.Module):
         """Redraw every weight from ``seed`` with an explicit
         ``torch.Generator`` on ``init_device``, then move it to the model's
         device."""
-        self._build(torch.Generator(init_device).manual_seed(seed),
+        self._build(_generator(init_device, seed, self.embed.device),
                     self.embed.device)
         return self
 

@@ -272,8 +272,9 @@ def test_port_imports_without_jax_or_repro():
     ``repro`` cannot be imported at all: the fleet path, the serving path
     with its model substrate and attention kernel, the MoE, SSM and
     hybrid families with their scan and decode kernels, the window query
-    and the launch geometry checker with its fixture, and training (the
-    optimizer, data, checkpoints and the trainer)."""
+    and the launch geometry checker with its fixture, training (the
+    optimizer, data, checkpoints and the trainer) and the dry run with its
+    roofline terms and trace."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
 
@@ -320,5 +321,6 @@ def test_port_imports_without_jax_or_repro():
                  "kernels.placement.geometry", "analysis.launch_check",
                  "analysis.cli", "analysis.fixtures.racy_kernel",
                  "kernels._autograd", "optim.adamw", "data.pipeline",
-                 "checkpoint.checkpoint", "launch.train"):
+                 "checkpoint.checkpoint", "launch.train",
+                 "launch.dryrun", "roofline.terms", "roofline.trace"):
         assert f"repro_torch.{name}" in names, name

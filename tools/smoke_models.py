@@ -2,7 +2,7 @@
 """Run ``chip_smoke.py``'s model-family phases alone on one card, with its
 checks: quicker than the whole smoke run when only the models changed.
 
-    python3 tools/smoke_models.py [paths] [serve] [plain] [train]
+    python3 tools/smoke_models.py [paths] [serve] [plain] [train] [dryrun]
 
 ``paths``: the full moonshot-v1-16b-a3b, deepseek-v2-236b at full width
 cut to 2 layers and the full seamless-m4t-medium, forward and decode
@@ -11,7 +11,8 @@ encoder-decoder archs served through RAS, kernel vs plain engine
 (``serve_new_archs``); ``plain``: the model-level kernel-vs-plain
 comparisons (``model_plain_paths``); ``train``: the training legs, their
 kernel-vs-plain gradients, the checkpoint round trip and the backward
-times (``train_phase``). No argument runs all four. The
+times (``train_phase``); ``dryrun``: the dry run's traces held to the
+card (``dryrun_phase``). No argument runs all five. The
 kernels are built first, as ``chip_smoke.py`` builds them. Every line is
 JSON; the first names the card and its power limit. Exits non-zero
 without CUDA or when a check fails.
@@ -27,7 +28,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-PHASES = ("paths", "serve", "plain", "train")
+PHASES = ("paths", "serve", "plain", "train", "dryrun")
 
 
 def main() -> None:
@@ -62,6 +63,8 @@ def main() -> None:
         smoke.model_plain_paths(dev)
     if "train" in what:
         smoke.train_phase(dev)
+    if "dryrun" in what:
+        smoke.dryrun_phase(dev)
 
 
 if __name__ == "__main__":
