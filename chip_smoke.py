@@ -162,7 +162,8 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    qwen2.5-3b cut to 2 layers saved under the git-ignored build/ and
    restored bit for bit; and each differentiated kernel route's backward
    (the plain version recomputed, no launch) timed at its leg's shape;
-23. dryrun: ``launch.dryrun.dry_run_one`` traces, on ``meta``, the full
+23. dryrun: ``launch.dryrun.dry_run_one`` traces, on ``meta`` and for one
+   card (``mesh="1xH100"``), the full
    qwen2.5-3b's training step at 1 x 4096 and the full zamba2-7b's
    prefill at 1 x 4096; the same steps (``launch.dryrun.build``) then
    run on the card: the record's argument bytes must equal the card's
@@ -176,6 +177,29 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    ``flash_attention`` a zamba2 prefill) the median of 3 timed steps must
    take no less than the record's bound, ``max(compute_s, memory_s)``;
    each step's share of the bound and both routes' peaks printed.
+
+24. mesh: the production mesh's route on a 1 x 1 mesh (a world-size-1
+   NCCL group, a ``TCPStore`` on localhost): every parameter, moment and
+   input a DTensor placed by ``launch/sharding.py``, every kernel reached
+   through ``local_map``. The full qwen2.5-3b's loss and gradients at
+   1 x 4096 on the mesh route and on phase 22's route (no mesh): equal,
+   bit for bit, or else within phase 22's tolerances with the leaves that
+   differ printed; 72 ``flash_attention`` each; both routes' ms a step
+   (``train_step``, AdamW included; 3 steps after an untimed one), peak
+   memory, the device's busy share of one step and where one step's host
+   time goes (cProfile, by package). zamba2-7b at 13 blocks (1 x 4096:
+   13 ``ssd_scan``, 2 ``flash_attention``) and falcon-mamba-7b at 2
+   layers (1 x 1024: 2 ``ssm_scan``) prefill on both routes, 3 calls
+   timed after an untimed one: logits equal, launches equal. zamba2-7b
+   at 13 blocks decodes 8 steps of batch 4 from the end of a 4096 cache
+   on both routes: logits and state equal, 2 ``flash_decode`` (2 split,
+   2 combine launches) a step. ``decode_attention_op`` of a cache placed
+   on its sequence (each rank's split pass, the partials gathered, one
+   combine) equals the plain call, bit for bit. A sequence-sharded q
+   refuses the attention kernel; a DTensor refuses every kernel wrapper;
+   ``make_production_mesh()`` refuses one card. Then the group is torn
+   down and the qwen2.5-3b and granite-8b ``TRAIN_4K`` records on 16 x 16
+   (analytic, a fake 256-rank group) are printed.
 
 Every phase line carries ``elapsed_s``, the seconds since the start. Then
 one ``{"kernels": [...]}`` line, and as the last line
@@ -2786,12 +2810,13 @@ def dryrun_leg(dev, arch: str, shape, want: dict, reduced: list,
     from repro_torch.launch.dryrun import dry_run_one
 
     cfg = get_config(arch)
-    rec = dry_run_one(arch, shape, out_dir=None, verbose=False)
+    rec = dry_run_one(arch, shape, mesh="1xH100", out_dir=None,
+                      verbose=False)
     roof = rec["roofline"]
     bound_s = max(roof["compute_s"], roof["memory_s"])
     plain_shape = plain_shape or shape
     plain_rec = rec if plain_shape is shape else dry_run_one(
-        arch, plain_shape, out_dir=None, verbose=False)
+        arch, plain_shape, mesh="1xH100", out_dir=None, verbose=False)
     plain = dryrun_run(dev, cfg, plain_shape, "ref", 1, {}, plain_rec)
     kern = dryrun_run(dev, cfg, shape, "auto", 1 + DRY_TIMED_RUNS, want, rec)
     traced = plain_rec["memory"]["peak_size_in_bytes"]
@@ -2865,6 +2890,490 @@ def dryrun_phase(dev) -> dict:
             plain_shape=InputShape(f"prefill_1x{DRY_PLAIN_SSD_SEQ}",
                                    DRY_PLAIN_SSD_SEQ, 1, "prefill")),
     }
+
+
+MESH_TIMED_STEPS = 3              # train steps timed on each route, each
+#                                   route's first (untimed) step before them
+MESH_TIMED_CALLS = 3              # prefill calls timed, after one untimed
+MESH_DECODE = (4, 4096)           # zamba2's decode batch and cache length
+
+
+def mesh_group():
+    """A world-size-1 NCCL group (a ``TCPStore`` on a free localhost port)
+    and the 1 x 1 mesh over it."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    store = dist.TCPStore("localhost", port, 1, is_master=True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    return make_host_mesh()
+
+
+def prefill_on_mesh(model, batch: dict, mesh, cfg) -> dict:
+    """``model`` placed on ``mesh`` in place per ``launch/sharding.py``'s
+    prefill specs; returns ``batch`` placed there."""
+    from repro_torch import spmd
+    from repro_torch.launch import sharding
+    from repro_torch.models.config import InputShape
+
+    sharding.configure_attention_sharding(mesh, cfg, "prefill")
+    sharding.configure_moe_sharding(mesh, cfg)
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    spmd.distribute_model(model, mesh, sharding.param_specs(
+        mesh, cfg, shapes, "prefill"))
+    B, S = batch["tokens"].shape
+    return spmd.distribute_tree(batch, mesh, sharding.batch_specs(
+        mesh, cfg, InputShape("mesh", S, B, "prefill"), batch))
+
+
+def local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def timed_steps(model, opt, batch) -> list:
+    """(ms, launches) of each of MESH_TIMED_STEPS train steps, after one
+    untimed step."""
+    from repro_torch.launch.train import train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg_opt = AdamWConfig(total_steps=MESH_TIMED_STEPS + 1)
+    out = []
+    for i in range(MESH_TIMED_STEPS + 1):
+        reset_counts()
+        (_, gnorm), s_ = timed(lambda: train_step(model, cfg_opt, opt,
+                                                  batch))
+        check(math.isfinite(float(local(gnorm))), f"grad norm {gnorm}")
+        if i:
+            out.append((1e3 * s_, nonzero_counts()))
+    return out
+
+
+def host_profile(fn, label: str) -> dict:
+    """Where one call of ``fn`` spends the host's time: cProfile's own
+    time of each function, summed by where it lies (DTensor's package,
+    the rest of torch, this repo, the C functions Python calls: aten ops
+    and kernel launches), as shares of the profiled total; and the call's
+    wall time under the profiler."""
+    import cProfile
+    import pstats
+
+    def where(path: str) -> str:
+        if path == "~":
+            return "C functions (aten ops, launches)"
+        if "torch/distributed/tensor" in path:
+            return "DTensor (torch.distributed.tensor)"
+        if "repro_torch" in path:
+            return "repro_torch"
+        return "rest of torch" if "/torch/" in path else "other"
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    own: dict = {}
+    for (path, _, _), (_, _, tt, _, _) in pstats.Stats(prof).stats.items():
+        own[where(path)] = own.get(where(path), 0.0) + tt
+    total = sum(own.values())
+    return {"phase": "host_profile", "of": label, "wall_ms": 1e3 * wall,
+            "profiled_ms": 1e3 * total,
+            "own_time_share": {k: v / total for k, v in sorted(
+                own.items(), key=lambda kv: -kv[1])}}
+
+
+def step_profiles(model, opt, batch, route: str) -> list:
+    """One more train step under the profiler (the device's busy share)
+    and one under cProfile (where the host's time goes), on ``route``."""
+    from repro_torch.launch.train import train_step
+    from repro_torch.optim.adamw import AdamWConfig
+
+    cfg_opt = AdamWConfig(total_steps=MESH_TIMED_STEPS + 3)
+
+    def step():
+        train_step(model, cfg_opt, opt, batch)
+
+    label = f"qwen2.5-3b train step, {route} route"
+    dev_row = profile_device(step, label)
+    return [{k: dev_row[k] for k in ("phase", "of", "wall_ms",
+                                     "device_busy_ms", "device_busy_share")},
+            host_profile(step, label)]
+
+
+def mesh_train_leg(dev, mesh) -> dict:
+    """The full qwen2.5-3b at 1 x TRAIN_SEQ: loss and gradients on both
+    routes, then each route's timed steps and peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.launch import sharding
+    from repro_torch.launch.train import place_on_mesh
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg = get_config("qwen2.5-3b")
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_wgmma": 2 * cfg.n_layers}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             SyntheticCorpus(cfg, TRAIN_SEQ, 1, seed=0).batch(0).items()}
+    rows = {}
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    model = training_model(cfg, dev, seed=0)
+    reset_counts()
+    loss = model.loss(batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    plain_counts = nonzero_counts()
+    plain_loss = loss.detach()
+    plain_grads = {k: p.grad for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    opt = adamw_init(model)
+    rows["plain"] = timed_steps(model, opt, batch)
+    plain_peak = torch.cuda.max_memory_allocated()
+    profiles = step_profiles(model, opt, batch, "plain")
+    del model, opt
+    free_card()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = training_model(cfg, dev, seed=0)
+    opt, place_batch = place_on_mesh(mesh, cfg, model)
+    strategy = sharding.pick_strategy(cfg, "train")
+    mb = place_batch(batch)
+    reset_counts()
+    loss = model.loss(mb)
+    loss.backward()
+    torch.cuda.synchronize()
+    mesh_counts = nonzero_counts()
+    mesh_loss = local(loss.detach())
+    differing, worst = [], 0.0
+    for k, p in model.named_parameters():
+        g, ref = local(p.grad), plain_grads[k]
+        if not torch.equal(g, ref):
+            err = (g.float() - ref.float()).abs().max().item()
+            scale = max(ref.float().abs().max().item(), 1e-30)
+            differing.append([k, err / scale])
+            worst = max(worst, err / scale)
+    model.zero_grad(set_to_none=True)
+    del plain_grads
+    rows["mesh"] = timed_steps(model, opt, mb)
+    mesh_peak = torch.cuda.max_memory_allocated()
+    profiles += step_profiles(model, opt, mb, "mesh")
+    bit_equal = not differing and torch.equal(mesh_loss, plain_loss)
+    loss_rel = abs(float(mesh_loss) - float(plain_loss)) / abs(
+        float(plain_loss))
+    emit({"phase": "mesh_train", "arch": "qwen2.5-3b", "mesh": "1x1",
+          "strategy": strategy, "tokens_a_step": [1, TRAIN_SEQ],
+          "loss_plain": float(plain_loss), "loss_mesh": float(mesh_loss),
+          "bit_equal": bit_equal, "loss_rel_err": loss_rel,
+          "differing_leaves": differing[:20],
+          "n_differing_leaves": len(differing),
+          "worst_leaf_rel_err": worst,
+          "cause": None if bit_equal else "the mesh route's ops differ "
+                                          "from the plain route's",
+          "launches_plain": plain_counts, "launches_mesh": mesh_counts,
+          "ms_a_step_plain": [r[0] for r in rows["plain"]],
+          "ms_a_step_mesh": [r[0] for r in rows["mesh"]],
+          "launches_a_timed_step_plain": [r[1] for r in rows["plain"]],
+          "launches_a_timed_step_mesh": [r[1] for r in rows["mesh"]],
+          "peak_gb_plain": plain_peak / 1e9, "peak_gb_mesh": mesh_peak / 1e9,
+          "device_memory_gb": torch.cuda.get_device_properties(
+              dev).total_memory / 1e9})
+    for row in profiles:
+        emit(row)
+    for name, c in (("plain", plain_counts), ("mesh", mesh_counts),
+                    *((f"{r} step", c) for r in rows
+                      for _, c in rows[r])):
+        check(c == want, f"qwen2.5-3b {name}: launched {c}, not {want}")
+    check(bit_equal or (loss_rel <= TRAIN_LOSS_RTOL
+                        and worst <= TRAIN_GRAD_TOL),
+          f"qwen2.5-3b: the mesh route's loss {float(mesh_loss)} (plain "
+          f"{float(plain_loss)}) and gradients ({differing[:5]}) differ")
+    del model, opt, batch, mb
+    free_card()
+    return {"loss and backward": mesh_counts,
+            "timed steps": {k: sum(c.get(k, 0) for _, c in rows["mesh"])
+                            for k in want}}
+
+
+def timed_calls(fn) -> tuple:
+    """(output of the first call, launches of each call, ms of each of
+    MESH_TIMED_CALLS calls after the first, untimed one)."""
+    out, launched, ms = None, [], []
+    for i in range(MESH_TIMED_CALLS + 1):
+        reset_counts()
+        y, s_ = timed(fn)
+        launched.append(nonzero_counts())
+        if i:
+            ms.append(1e3 * s_)
+        else:
+            out = y
+    return out, launched, ms
+
+
+def mesh_prefill_leg(dev, mesh, arch: str, cfg, seq: int,
+                     want: dict) -> dict:
+    """``arch`` at cut depth, 1 x ``seq``: the forward on the plain route,
+    then the same model placed on the mesh: logits equal, every call's
+    launches ``want``; each route timed after a first, untimed call."""
+    free_card()
+    model = training_model(cfg, dev, seed=0).requires_grad_(False)
+    g = torch.Generator(dev).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, seq),
+                                     generator=g, device=dev,
+                                     dtype=torch.int32)}
+    with torch.no_grad():
+        plain, plain_counts, plain_ms = timed_calls(
+            lambda: model(batch)[0])
+        mb = prefill_on_mesh(model, batch, mesh, cfg)
+        meshed, mesh_counts, mesh_ms = timed_calls(
+            lambda: local(model(mb)[0]))
+    equal = torch.equal(plain, meshed)
+    emit({"phase": "mesh_prefill", "arch": arch, "layers": cfg.n_layers,
+          "tokens": [1, seq], "mesh": "1x1", "logits_bit_equal": equal,
+          "max_abs_err": max_abs_err([plain], [meshed]),
+          "launches_plain": plain_counts[0], "launches_mesh": mesh_counts[0],
+          "ms_plain": plain_ms, "ms_mesh": mesh_ms,
+          "timed_after_one_untimed_call": True})
+    check(all(c == want for c in plain_counts + mesh_counts),
+          f"{arch}: launched {plain_counts} plain, {mesh_counts} on the "
+          f"mesh, not {want} a call")
+    check(equal, f"{arch}: the mesh route's logits differ")
+    del model, plain, meshed
+    free_card()
+    return {"prefill": mesh_counts[0]}
+
+
+def mesh_decode_leg(dev, mesh, arch: str, cfg, want: dict) -> dict:
+    """``arch`` at cut depth: DECODE_STEPS decode steps of MESH_DECODE's
+    batch from the end of a cache filled with N(0, 1), on the plain route
+    and then with the model placed by the decode specs and the state by
+    ``decode_state_specs``: every step's logits and the final state equal,
+    every step's launches ``want``; the first step of each route is its
+    untimed warm-up."""
+    from repro_torch import spmd
+    from repro_torch.launch import sharding
+    from repro_torch.models.config import InputShape
+
+    b, S = MESH_DECODE
+    free_card()
+    model = training_model(cfg, dev, seed=0).requires_grad_(False)
+    g = torch.Generator(dev).manual_seed(0)
+    state0 = model.init_decode_state(b, S)
+    for key in ("k", "v", "ckv"):
+        if key in state0:
+            state0[key].normal_(generator=g)
+    state0["pos"].fill_(S - DECODE_STEPS)
+    toks = torch.randint(0, cfg.vocab_size, (DECODE_STEPS, b), generator=g,
+                         device=dev)
+
+    def run(state, place_tok):
+        logits, launched, ms = [], [], []
+        with torch.no_grad():
+            for t in toks:
+                reset_counts()
+                (lg, state), s_ = timed(
+                    lambda: model.decode_step(state, place_tok(t)))
+                launched.append(nonzero_counts())
+                logits.append(local(lg))
+                ms.append(1e3 * s_)
+        return logits, launched, ms[1:], state
+
+    plain, plain_counts, plain_ms, plain_state = run(
+        {k: v.clone() for k, v in state0.items()}, lambda t: t)
+    sharding.configure_attention_sharding(mesh, cfg, "decode")
+    sharding.configure_moe_sharding(mesh, cfg)
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    spmd.distribute_model(model, mesh, sharding.param_specs(
+        mesh, cfg, shapes, "decode"))
+    shape = InputShape("mesh_decode", S, b, "decode")
+    state = spmd.distribute_tree(state0, mesh, sharding.decode_state_specs(
+        mesh, cfg, shape, state0))
+    tok_spec = sharding.batch_specs(mesh, cfg, shape, {"t": toks[0]})["t"]
+    meshed, mesh_counts, mesh_ms, state = run(
+        state, lambda t: spmd.distribute(t, mesh, tok_spec))
+    equal = all(torch.equal(x, y) for x, y in zip(plain, meshed))
+    differing_state = [k for k in plain_state
+                       if not torch.equal(local(state[k]), plain_state[k])]
+    emit({"phase": "mesh_decode", "arch": arch, "layers": cfg.n_layers,
+          "batch": b, "cache": S, "steps": DECODE_STEPS, "mesh": "1x1",
+          "logits_bit_equal": equal, "differing_state": differing_state,
+          "max_abs_err": max_abs_err(plain, meshed),
+          "launches_a_step_plain": plain_counts[0],
+          "launches_a_step_mesh": mesh_counts[0],
+          "ms_a_step_plain": plain_ms, "ms_a_step_mesh": mesh_ms,
+          "timed_after_one_untimed_step": True})
+    check(all(c == want for c in plain_counts + mesh_counts),
+          f"{arch} decode: launched {plain_counts} plain, {mesh_counts} on "
+          f"the mesh, not {want} a step")
+    check(equal and not differing_state,
+          f"{arch} decode: the mesh route's logits (equal: {equal}) or "
+          f"state ({differing_state}) differ")
+    del model, state, state0, plain_state
+    free_card()
+    return {"decode steps": {k: sum(c.get(k, 0) for c in mesh_counts)
+                             for k in want}}
+
+
+def mesh_sequence_shards(dev, mesh) -> None:
+    """``decode_attention_op`` of a cache placed ``Shard(1)`` (its
+    sequence) on the mesh's ``model`` dim: the split pass over the rank's
+    slice, the partials gathered over that dim (one rank here), one
+    combine; equal to the call on the plain tensors, one split and one
+    combine launch a call, with and without a window."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels.flash_decode.ops import decode_attention_op
+
+    b, S = MESH_DECODE
+    g = torch.Generator(dev).manual_seed(1)
+    q = torch.randn((b, 32, 112), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((b, S, 32, 112), generator=g,
+                        device=dev).bfloat16() for _ in range(2))
+    pos = torch.tensor([S - 1, 2000, 100, 3000], dtype=torch.int32,
+                       device=dev)
+    seq, whole = [Replicate(), Shard(1)], [Replicate(), Replicate()]
+    qd, pd = (DTensor.from_local(t, mesh, whole) for t in (q, pos))
+    kd, vd = (DTensor.from_local(t, mesh, seq) for t in (k, v))
+    want = {"flash_decode": 1, "flash_decode_split": 1,
+            "flash_decode_combine": 1}
+    rows = []
+    for window in (0, 1000):
+        reset_counts()
+        ref = decode_attention_op(q, k, v, pos, window=window)
+        plain_counts = nonzero_counts()
+        reset_counts()
+        got = local(decode_attention_op(qd, kd, vd, pd, window=window))
+        mesh_counts = nonzero_counts()
+        rows.append({"window": window, "bit_equal": torch.equal(got, ref),
+                     "max_abs_err": max_abs_err([ref], [got]),
+                     "launches_plain": plain_counts,
+                     "launches_mesh": mesh_counts})
+        check(plain_counts == mesh_counts == want,
+              f"sequence shards: launched {plain_counts}, {mesh_counts}")
+        check(torch.equal(got, ref), f"sequence shards, window {window}: "
+                                     f"{rows[-1]['max_abs_err']}")
+    emit({"phase": "mesh_sequence_shards", "cache": [b, S, 32, 112],
+          "placements": str(seq), "rows": rows})
+
+
+def mesh_refusals(dev, mesh) -> None:
+    """A sequence-sharded q refuses the attention kernel, a DTensor every
+    kernel wrapper (both passes of flash-decode), and the production mesh
+    one card."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention
+    from repro_torch.kernels.flash_attention.ops import attention_op
+    from repro_torch.kernels.flash_decode.flash_decode import (
+        flash_decode_combine,
+        flash_decode_partials,
+    )
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssm_scan.ssm_scan import ssm_scan
+    from repro_torch.launch.mesh import make_production_mesh
+
+    q = torch.zeros((1, 16, 256, 128), dtype=torch.bfloat16, device=dev)
+    seq_q = DTensor.from_local(q, mesh, [Replicate(), Shard(2)])
+    whole = DTensor.from_local(q, mesh, [Replicate(), Replicate()])
+    dq = DTensor.from_local(q[:, 0], mesh, [Replicate(), Replicate()])
+    pos = DTensor.from_local(torch.zeros(1, dtype=torch.int32, device=dev),
+                             mesh, [Replicate(), Replicate()])
+    refused = {}
+    for name, fn, err in (
+            ("sequence-sharded q", lambda: attention_op(seq_q, whole, whole),
+             NotImplementedError),
+            ("DTensor into flash_attention",
+             lambda: flash_attention(whole, whole, whole), TypeError),
+            ("DTensor into flash_decode's split pass",
+             lambda: flash_decode_partials(dq, whole, whole, pos), TypeError),
+            ("DTensor into flash_decode's combine pass",
+             lambda: flash_decode_combine(whole, whole, torch.bfloat16),
+             TypeError),
+            ("DTensor into ssd_scan",
+             lambda: ssd_scan(whole, None, None, None, None), TypeError),
+            ("DTensor into ssm_scan",
+             lambda: ssm_scan(whole, None, None, None, None), TypeError),
+            ("make_production_mesh on one card", make_production_mesh,
+             ValueError)):
+        reset_counts()
+        try:
+            fn()
+        except err as e:
+            refused[name] = str(e)
+        check(name in refused, f"{name} was not refused")
+        check(not nonzero_counts(), f"{name} launched {nonzero_counts()}")
+    emit({"phase": "mesh_refusals", "refused": refused})
+
+
+def mesh_records() -> list:
+    """The qwen2.5-3b and granite-8b ``TRAIN_4K`` records on 16 x 16."""
+    from repro_torch.launch.dryrun import dry_run_one
+
+    out = []
+    for arch in ("qwen2.5-3b", "granite-8b"):
+        rec = dry_run_one(arch, "train_4k", out_dir=None, verbose=False)
+        roof = rec["roofline"]
+        row = {"phase": "mesh_record", "arch": arch, "shape": "train_4k",
+               "mesh": rec["mesh"], "n_chips": rec["n_chips"],
+               "trace_s": rec["lower_s"], "analytic": True,
+               **{k: roof[k] for k in ("compute_s", "memory_s",
+                                       "collective_s", "bottleneck",
+                                       "hlo_flops_per_chip",
+                                       "useful_flops_ratio",
+                                       "wire_bytes_per_chip")},
+               "argument_gb_a_chip": rec["memory"]["argument_size_in_bytes"]
+               / 1e9,
+               "peak_gb_a_chip": rec["memory"]["peak_size_in_bytes"] / 1e9,
+               "collectives": rec["collectives"]}
+        emit(row)
+        check(rec["mesh"] == "16x16" and roof["collective_s"] > 0,
+              f"{arch}: record {rec['mesh']}, {roof['collective_s']}")
+        out.append(row)
+    return out
+
+
+def mesh_phase(dev) -> dict:
+    """Phase 24: the production mesh's route on a 1 x 1 mesh held to the
+    no-mesh route. Returns each leg's launches."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import reset_hints
+    from repro_torch.models.config import TRAIN_4K
+
+    zcfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=13)
+    fcfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2)
+    n_attn = zcfg.n_layers // zcfg.shared_attn_every
+    mesh = mesh_group()
+    try:
+        launches = {
+            "mesh qwen2.5-3b train": mesh_train_leg(dev, mesh),
+            "mesh zamba2-7b prefill": mesh_prefill_leg(
+                dev, mesh, "zamba2-7b", zcfg, SEQ,
+                {"ssd_scan": zcfg.n_layers, "flash_attention": n_attn,
+                 "flash_attention_wgmma": n_attn}),
+            "mesh falcon-mamba-7b prefill": mesh_prefill_leg(
+                dev, mesh, "falcon-mamba-7b", fcfg, SSM_TRAIN_SEQ,
+                {"ssm_scan": fcfg.n_layers}),
+            "mesh zamba2-7b decode": mesh_decode_leg(
+                dev, mesh, "zamba2-7b", zcfg,
+                {"flash_decode": n_attn, "flash_decode_split": n_attn,
+                 "flash_decode_combine": n_attn}),
+        }
+        mesh_sequence_shards(dev, mesh)
+        mesh_refusals(dev, mesh)
+    finally:
+        reset_hints(zcfg, TRAIN_4K)
+        dist.destroy_process_group()
+    mesh_records()
+    return launches
 
 
 def main() -> None:
@@ -3253,6 +3762,9 @@ def main() -> None:
 
     # -- 23. the dry run on the card -----------------------------------------
     dryrun_phase(dev)
+
+    # -- 24. the production mesh's route on one card ----------------------------
+    launches_by_path.update(mesh_phase(dev))
 
     def fleet_counts_by_path(name):
         """A fleet kernel's launches on each fleet path but the main one."""

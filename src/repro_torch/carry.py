@@ -27,6 +27,7 @@ import itertools
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch._device import resolve_device
 from repro_torch.core.tensor_state import SchedState
@@ -114,7 +115,10 @@ def bf16_from_bits(a: np.ndarray) -> torch.Tensor:
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t``; a bf16 tensor as its ``BF16_BITS``."""
+    """A host copy of ``t``; a bf16 tensor as its ``BF16_BITS``. A
+    DTensor is gathered whole first (a collective: every rank calls it)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.contiguous().view(torch.int16).numpy().view(BF16_BITS).copy()
@@ -172,6 +176,24 @@ def model_params_from_numpy(cfg, params, *, device=None) -> dict:
     Each leaf keeps its own dtype (``_leaf_converter``)."""
     return _unstack_tree(cfg, params,
                          _leaf_converter(cfg, resolve_device(device)))
+
+
+def model_on_mesh_from_numpy(cfg, params, mesh, specs: dict, *,
+                             device=None, backend: str = "auto"):
+    """A ``models.transformer.Model(cfg)`` on ``mesh`` holding the weights
+    of ``params`` (a ``repro`` ``Model.init`` tree of numpy arrays): each
+    rank reads the same arrays and keeps its shard of each, placed by
+    ``specs`` (parameter name -> spec, ``launch/sharding.py::
+    param_specs``), on ``device`` (``None`` -> CUDA). The leaves go to
+    ``device`` one at a time, each cut to its shard before the next, so
+    the device never holds the whole model."""
+    from repro_torch import spmd
+    from repro_torch.models.transformer import Model
+
+    device = resolve_device(device)
+    state = model_params_from_numpy(cfg, params, device="cpu")
+    model = Model(cfg, device="meta", backend=backend)
+    return spmd.place(model, mesh, specs, state, device)
 
 
 def model_params_to_numpy(cfg, params) -> dict:

@@ -14,8 +14,10 @@ A bf16 leaf is written as the reference writes it, as its raw 2-byte bits
 back by that dtype. (The reference's ``restore`` cannot cast such a leaf,
 numpy having no bfloat16.)
 
-The reference's ``shardings`` (a ``jax.device_put`` of each leaf onto a
-mesh) has no meaning on one card and is left out.
+``restore(..., shardings=specs, mesh=mesh)`` is the reference's
+``shardings`` (a ``jax.device_put`` of each leaf onto a mesh): every rank
+reads the whole checkpoint and keeps its shard of each leaf, placed by its
+spec (``launch/sharding.py``), with nothing sent between ranks.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import spmd
 from repro_torch.carry import (
     BF16_BITS,
     bf16_from_bits,
@@ -68,12 +72,15 @@ def save(path: str, params, step: int = 0,
          extra: Optional[dict] = None) -> None:
     """Write ``params`` to the directory ``path``: a ``Model`` (its
     weights, in the reference's tree), or a nested dict of tensors or
-    numpy arrays in the reference's layout."""
+    numpy arrays in the reference's layout. DTensors (a model on a mesh)
+    are gathered whole on every rank, and rank 0 writes."""
     if isinstance(params, torch.nn.Module):
         params = model_params_to_numpy(params.cfg, params)
-    os.makedirs(path, exist_ok=True)
     arrays = {k: tensor_to_numpy(v) if isinstance(v, torch.Tensor)
               else np.asarray(v) for k, v in _flatten(params).items()}
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return                      # every rank gathered; rank 0 writes
+    os.makedirs(path, exist_ok=True)
     np.savez(os.path.join(path, "params.npz"), **arrays)
     meta = {
         "step": step,
@@ -87,15 +94,25 @@ def save(path: str, params, step: int = 0,
         json.dump(meta, f, indent=1)
 
 
-def restore(path: str, like=None):
+def restore(path: str, like=None, shardings=None, mesh=None):
     """Read the checkpoint at ``path``. Returns (restored, step).
 
     ``like`` None: ``restored`` is a dict of tree path -> host tensor in
     the dtype ``meta.json`` records (bf16 leaves from their bits). ``like``
-    a ``Model``: its weights are loaded from the checkpoint, in place and
-    cast to each parameter's dtype, and ``restored`` is the model. ``like``
-    a nested dict of tensors: ``restored`` has its structure, each leaf
-    cast to the matching leaf's dtype and device."""
+    a ``Model`` (not yet on a mesh; on ``meta`` with ``shardings``): its
+    weights are loaded from the checkpoint, in place and cast to each
+    parameter's dtype, and ``restored`` is the model. ``like`` a nested
+    dict of tensors: ``restored`` has its structure, each leaf cast to
+    the matching leaf's dtype and device.
+
+    ``shardings`` (with ``mesh``, a ``DeviceMesh``): the specs of the
+    leaves, by parameter name for a ``Model`` (``param_specs``), by tree
+    path for a dict; every leaf is then placed on ``mesh`` as a DTensor
+    (``spmd.distribute``), one leaf at a time, each cut to this rank's
+    shard before the next goes to the device (the mesh's for a
+    ``Model``)."""
+    if (shardings is None) != (mesh is None):
+        raise ValueError("shardings and mesh go together")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     with np.load(os.path.join(path, "params.npz")) as data:
@@ -109,13 +126,22 @@ def restore(path: str, like=None):
     if like is None:
         return flat, meta["step"]
     if isinstance(like, torch.nn.Module):
-        tree = _unflatten({k: tensor_to_numpy(v) for k, v in flat.items()})
+        tree = _unflatten({k: tensor_to_numpy(flat.pop(k))
+                           for k in list(flat)})
+        if shardings is not None:
+            # one leaf at a time onto the mesh's device, cut to its shard
+            state = model_params_from_numpy(like.cfg, tree, device="cpu")
+            spmd.place(like, mesh, shardings, state, mesh.device_type)
+            return like, meta["step"]
         device = next(like.parameters()).device
         state = model_params_from_numpy(like.cfg, tree, device=device)
         own = like.state_dict()
         like.load_state_dict({k: v.to(own[k].dtype)
                               for k, v in state.items()})
         return like, meta["step"]
-    restored = {k: flat[k].to(dtype=leaf.dtype, device=leaf.device)
-                for k, leaf in _flatten(like).items()}
+    restored = {}
+    for k, leaf in _flatten(like).items():
+        t = flat.pop(k).to(dtype=leaf.dtype, device=leaf.device)
+        restored[k] = t if shardings is None else \
+            spmd.distribute(t, mesh, shardings[k])
     return _unflatten(restored), meta["step"]

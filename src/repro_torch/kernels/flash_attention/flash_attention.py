@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.kernels import _build
 from repro_torch.kernels._autograd import check_no_grad
 
@@ -82,6 +83,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     ``tanh(s / softcap) * softcap`` to the scaled scores. The output has
     no ``grad_fn``: under grad mode an input that requires grad raises
     (``ops.attention_op`` differentiates)."""
+    if spmd.is_dtensor(q):
+        raise TypeError("flash_attention reads raw pointers: pass local "
+                        "tensors (a DTensor goes through ops.py's "
+                        "local_map)")
     global launches, launches_wgmma, launches_simt
     check_no_grad("flash_attention", "ops.attention_op", q, k, v)
     if not isinstance(q, torch.Tensor) or not q.is_cuda:

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.kernels._autograd import recompute_vjp
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -47,10 +48,24 @@ def attention_op(q, k, v, *, causal=True, window=0, softcap=0.0,
     back to the plain version. Both routes differentiate: the kernel's
     backward recomputes the plain version (``_KernelAttention``).
 
+    DTensors (a model on a mesh) run on their local shards through
+    ``spmd.attend``: q sharded by batch rows or heads; a sequence-sharded
+    q raises ``NotImplementedError`` (the kernel takes no causal offset).
+
     Launches are counted in ``flash_attention.launches``: the forward's, and
     again a recomputed forward's under ``torch.utils.checkpoint``; the
     backward launches none.
     """
+    if spmd.is_dtensor(q):
+        # local_map: the kernel reads raw pointers, so a DTensor never
+        # reaches it; the work of a batch row or a q head is local
+        def core(ql, kl, vl, _):
+            return attention_op(ql, kl.contiguous(), vl.contiguous(),
+                                causal=causal, window=window,
+                                softcap=softcap, backend=backend)
+
+        return spmd.attend(core, q, k, v, q_heads=1, kv_heads=1, q_seq=2,
+                           offset_ok=False)
     if backend == "auto":
         backend = "kernel" if q.is_cuda else "ref"
     if backend == "kernel":

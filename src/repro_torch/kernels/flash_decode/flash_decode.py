@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.kernels import _build
 
 #: calls since the last reset (one per attention layer a step); each call
@@ -92,8 +93,32 @@ def flash_decode(q, k_cache, v_cache, pos, *, softcap: float = 0.0,
     MAX_GROUP), of q's dtype (f32 or bf16); pos: [B] int32 with ``0 <= pos
     < S``; all contiguous on one CUDA device -> [B,H,hd] in q's dtype.
     ``window`` > 0 keeps keys with ``pos - j < window``; ``softcap`` > 0
-    applies ``tanh(s / softcap) * softcap`` to the scaled scores."""
-    global launches, launches_split, launches_combine
+    applies ``tanh(s / softcap) * softcap`` to the scaled scores. The split
+    pass (``flash_decode_partials``) then the combine pass
+    (``flash_decode_combine``)."""
+    part_ml, part_acc = flash_decode_partials(q, k_cache, v_cache, pos,
+                                              softcap=softcap, window=window)
+    return flash_decode_combine(part_ml, part_acc, q.dtype)
+
+
+def _refuse_dtensor(name: str, t) -> None:
+    if spmd.is_dtensor(t):
+        raise TypeError(f"{name} reads raw pointers: pass local tensors (a "
+                        f"DTensor goes through ops.py's local_map)")
+
+
+def flash_decode_partials(q, k_cache, v_cache, pos, *, softcap: float = 0.0,
+                          window: int = 0):
+    """The split pass alone: ``flash_decode``'s arguments (any int32
+    ``pos``: keys past the cache's end are not there, and a chunk with no
+    visible key gives an empty partial) -> the f32 partials (m, l) [B,K,
+    n,G,2] and acc [B,K,n,G,hd] of its n = ``n_split(B, K, S)`` chunks, in
+    chunk order: m the chunk's largest visible score (-1e30 if none),
+    l the sum of exp(s - m), acc that of exp(s - m) v. A cache sharded on
+    its sequence gives each rank's partials, which ``ops.py`` gathers in
+    order for one combine."""
+    _refuse_dtensor("flash_decode", q)
+    global launches_split
     if not isinstance(q, torch.Tensor) or not q.is_cuda:
         raise ValueError("flash_decode runs on CUDA tensors only; use "
                          "decode_attention_ref for tensors on the host")
@@ -123,33 +148,61 @@ def flash_decode(q, k_cache, v_cache, pos, *, softcap: float = 0.0,
         _build.check_tensor("flash_decode", name, x, dtype, shape, dev)
     G = H // K
     chunk = chunk_size(B, K, S)
-    split_grid, combine_grid = launch_grid(B, K, S)
+    split_grid, _ = launch_grid(B, K, S)
     part_ml = torch.empty((B, K, split_grid[0], G, 2), dtype=torch.float32,
                           device=dev)
     part_acc = torch.empty((B, K, split_grid[0], G, hd),
                            dtype=torch.float32, device=dev)
-    out = torch.empty_like(q)
     lib = _lib()
-    is_bf16 = _DTYPES[q.dtype]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.flash_decode_split_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             pos.data_ptr(), part_ml.data_ptr(), part_acc.data_ptr(), B, S, K,
-            G, hd, is_bf16, chunk, max(int(window), 0), hd ** -0.5,
+            G, hd, _DTYPES[q.dtype], chunk, max(int(window), 0), hd ** -0.5,
             float(softcap), *split_grid, stream,
         )
-        if rc == 0:
-            launches_split += 1
-            rc = lib.flash_decode_combine_launch(
-                part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B,
-                K, G, hd, split_grid[0], is_bf16, *combine_grid, stream,
-            )
-            if rc == 0:
-                launches_combine += 1
     if rc != 0:
         raise _build.launch_error("flash_decode", rc,
                                   lib.flash_decode_error_string,
                                   "unsupported head dim, group or chunk")
+    launches_split += 1
+    return part_ml, part_acc
+
+
+def flash_decode_combine(part_ml, part_acc, dtype):
+    """The combine pass alone: the partials [B,K,n,G,2] and [B,K,n,G,hd]
+    (f32, contiguous, on one CUDA device), merged in chunk order ->
+    [B,K*G,hd] in ``dtype``. Each call is one ``launches`` (with its
+    split pass, or with the split passes of the ranks that hold a cache's
+    slices)."""
+    _refuse_dtensor("flash_decode", part_ml)
+    global launches, launches_combine
+    if part_ml.dim() != 5 or part_acc.dim() != 5:
+        raise ValueError("flash_decode: the partials must be 5-d")
+    B, K, n, G, hd = part_acc.shape
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash_decode: unsupported dtype {dtype}")
+    dev = part_acc.device
+    if dev.type != "cuda":
+        raise ValueError("flash_decode runs on CUDA tensors only")
+    for name, x, shape in (("part_ml", part_ml, (B, K, n, G, 2)),
+                           ("part_acc", part_acc, (B, K, n, G, hd))):
+        _build.check_tensor("flash_decode", name, x, torch.float32, shape,
+                            dev)
+    out = torch.empty((B, K * G, hd), dtype=dtype, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.flash_decode_combine_launch(
+            part_ml.data_ptr(), part_acc.data_ptr(), out.data_ptr(), B, K,
+            G, hd, n, _DTYPES[dtype], K, B, stream,
+        )
+    if rc != 0:
+        raise _build.launch_error("flash_decode", rc,
+                                  lib.flash_decode_error_string,
+                                  "too many partials for the combine pass's "
+                                  "shared memory")
+    launches_combine += 1
     launches += 1
     return out

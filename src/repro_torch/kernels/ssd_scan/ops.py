@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.kernels._autograd import recompute_vjp
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref, ssd_scan_ref
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_scan
@@ -52,10 +53,23 @@ def ssd_scan_op(x, dt, A, B, C, *, backend: str = "auto",
     (the model's ``ssm_chunk``), so a gradient through the kernel needs S a
     multiple of ``chunk``.
 
+    DTensors (a model on a mesh) run on their local shards through
+    ``spmd.scan``: batch rows and channels.
+
     Launches are counted in ``ssd_scan.launches``: the forward's, and again
     a recomputed forward's under ``torch.utils.checkpoint``; the backward
     launches none.
     """
+    if spmd.is_dtensor(x):
+        # local_map: the kernel reads raw pointers, so a DTensor never
+        # reaches it; a batch row's or a channel's scan is local
+        def fn(x, dt, A, B, C):
+            return ssd_scan_op(x, dt, A, B, C,
+                               backend=backend, chunk=chunk)
+
+        return spmd.scan(fn, x, dt, A, B, C,
+                         maps=({0: 0, 2: 2}, {2: 0}, {0: 0}, {0: 0}),
+                         channel=2)
     if backend == "auto":
         backend = "kernel" if x.is_cuda else "ref"
     if backend == "kernel":

@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.kernels import _build
 from repro_torch.kernels._autograd import check_no_grad
 
@@ -57,6 +58,10 @@ def ssd_scan(x, dt, A, B, C):
     and C 16-byte aligned -> y [B,S,H,P] in x's dtype. The output has no
     ``grad_fn``: under grad mode an input that requires grad raises
     (``ops.ssd_scan_op`` differentiates)."""
+    if spmd.is_dtensor(x):
+        raise TypeError("ssd_scan reads raw pointers: pass local "
+                        "tensors (a DTensor goes through ops.py's "
+                        "local_map)")
     global launches
     check_no_grad("ssd_scan", "ops.ssd_scan_op", x, dt, A, B, C)
     if not isinstance(x, torch.Tensor) or not x.is_cuda:

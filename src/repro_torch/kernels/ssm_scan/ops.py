@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.kernels._autograd import recompute_vjp
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 from repro_torch.kernels.ssm_scan.ssm_scan import ssm_scan
@@ -45,10 +46,23 @@ def ssm_scan_op(u, dt, A, B, C, *, backend: str = "auto"):
     back to the plain version. Both routes differentiate: the kernel's
     backward recomputes the plain version (``_KernelSSM``).
 
+    DTensors (a model on a mesh) run on their local shards through
+    ``spmd.scan``: batch rows and channels.
+
     Launches are counted in ``ssm_scan.launches``: the forward's, and again
     a recomputed forward's under ``torch.utils.checkpoint``; the backward
     launches none.
     """
+    if spmd.is_dtensor(u):
+        # local_map: the kernel reads raw pointers, so a DTensor never
+        # reaches it; a batch row's or a channel's scan is local
+        def fn(u, dt, A, B, C):
+            return ssm_scan_op(u, dt, A, B, C,
+                               backend=backend)
+
+        return spmd.scan(fn, u, dt, A, B, C,
+                         maps=({0: 0, 2: 2}, {2: 0}, {0: 0}, {0: 0}),
+                         channel=2)
     if backend == "auto":
         backend = "kernel" if u.is_cuda else "ref"
     if backend == "kernel":

@@ -18,6 +18,7 @@ import ctypes
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.kernels import _build
 from repro_torch.kernels._autograd import check_no_grad
 
@@ -59,6 +60,10 @@ def ssm_scan(u, dt, A, B, C):
     -> y [B,S,di] in u's dtype. The output has no ``grad_fn``: under grad
     mode an input that requires grad raises (``ops.ssm_scan_op``
     differentiates)."""
+    if spmd.is_dtensor(u):
+        raise TypeError("ssm_scan reads raw pointers: pass local "
+                        "tensors (a DTensor goes through ops.py's "
+                        "local_map)")
     global launches
     check_no_grad("ssm_scan", "ops.ssm_scan_op", u, dt, A, B, C)
     if not isinstance(u, torch.Tensor) or not u.is_cuda:

@@ -15,17 +15,24 @@ order matters twice: the first choice feeds the aux loss's density, and
 the flat (token, k) order sets each slot's position in its expert's buffer.
 
 Plain torch on every device: the reference computes the MoE in jnp,
-outside any Pallas kernel. The JAX package's ``set_dispatch_sharding``
-hint is a GSPMD sharding constraint with no counterpart on one card, so it
-is left out.
+outside any Pallas kernel.
+
+On a mesh (DTensor weights, ``launch/sharding.py``) the grouped tokens
+[G, Tg, D] are placed ``Shard(0)`` over the axes ``set_dispatch_sharding``
+names (the reference's hint), and each rank dispatches its groups to its
+experts through ``spmd.local``: it routes over all E experts, keeps the
+slots of its own, and its output is a partial sum over the expert shards.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import spmd
 from repro_torch.models.layers import act_fn, init_mlp, mlp, normal_init
 
 
@@ -59,6 +66,16 @@ def set_dispatch_groups(g: int) -> None:
     _DISPATCH_GROUPS = max(int(g), 1)
 
 
+#: The mesh axes that shard the grouped tokens' G on a mesh (None: G
+#: follows the tokens' batch sharding).
+_GROUP_AXES = None
+
+
+def set_dispatch_sharding(axes) -> None:
+    global _GROUP_AXES
+    _GROUP_AXES = axes
+
+
 def route(xf, router, top_k: int):
     """xf: [T,D] -> (probs [T,E] f32, gate [T,k], idx [T,k]): the router's
     softmax and its k largest entries a token, ties to the lower index."""
@@ -68,10 +85,13 @@ def route(xf, router, top_k: int):
     return probs, gate[:, :top_k], idx[:, :top_k]
 
 
-def _dispatch_one(xf, router, wg, wu, wd, top_k, cap, act):
-    """Dispatch + expert FFN for ONE group. xf: [Tg, D]."""
+def _dispatch_one(xf, router, wg, wu, wd, top_k, cap, act, e0: int = 0):
+    """Dispatch + expert FFN for ONE group. xf: [Tg, D]. ``wg``, ``wu``,
+    ``wd`` may hold a slice of the experts, from expert ``e0`` (a rank's
+    shard on a mesh): the slots routed elsewhere then give zeros."""
     Tg, D = xf.shape
     E = router.shape[-1]
+    E_l = wg.shape[0]
     probs, gate, idx = route(xf, router, top_k)
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
 
@@ -100,10 +120,14 @@ def _dispatch_one(xf, router, wg, wu, wd, top_k, cap, act):
     rows = torch.where(keep, e_flat * cap + pos, E * cap)
     buf = torch.zeros((E * cap + 1, D), dtype=xf.dtype, device=xf.device)
     buf[rows] = x_rep + 0.0
-    buf = buf[:E * cap].view(E, cap, D)
+    buf = buf[:E * cap].view(E, cap, D)[e0:e0 + E_l]
     g = act_fn(act)(torch.einsum("ecd,edf->ecf", buf, wg))
     u = torch.einsum("ecd,edf->ecf", buf, wu)
-    out_buf = torch.einsum("ecf,efd->ecd", g * u, wd)            # [E,cap,D]
+    out_buf = torch.einsum("ecf,efd->ecd", g * u, wd)          # [E_l,cap,D]
+    if E_l < E:
+        local_e = e_flat - e0
+        keep = keep & (local_e >= 0) & (local_e < E_l)
+        e_flat = local_e.clamp(0, E_l - 1)
     y_rep = out_buf[e_flat, pos] * keep[:, None].to(xf.dtype)
     y = (y_rep.reshape(Tg, top_k, D) * gate[..., None].to(xf.dtype)).sum(1)
     return y, aux
@@ -123,14 +147,57 @@ def moe_ffn(p, x, top_k: int, capacity_factor: float = 1.25, act="silu"):
     Tg = T // G
     cap = max(int(capacity_factor * Tg * top_k / E), 1)
 
-    ys, auxs = zip(*(
-        _dispatch_one(xf, p["router"], p["wg"], p["wu"], p["wd"], top_k,
-                      cap, act)
-        for xf in x.reshape(G, Tg, D)))
-    y = torch.stack(ys).reshape(B, S, D)
+    grouped = _grouped_on_mesh if spmd.is_dtensor(x) else _grouped
+    y, aux = grouped(p, x.reshape(G, Tg, D), top_k, cap, act)
+    y = y.reshape(B, S, D)
     if "shared" in p:
         y = y + mlp(p["shared"], x, act)
-    return y, torch.stack(auxs).mean()
+    return y, aux.mean()
+
+
+def _grouped(p, xg, top_k, cap, act, e0: int = 0):
+    """(y [G,Tg,D], aux [G]) of the groups of xg [G,Tg,D]."""
+    ys, auxs = zip(*(
+        _dispatch_one(xf, p["router"], p["wg"], p["wu"], p["wd"], top_k,
+                      cap, act, e0)
+        for xf in xg))
+    return torch.stack(ys), torch.stack(auxs)
+
+
+def _grouped_on_mesh(p, xg, top_k, cap, act):
+    """``_grouped`` of DTensors. local_map: DTensor has no rule for the
+    dispatch's sort, scatter and per-slot gather, and a rank's groups and
+    experts are local to it. The groups go ``Shard(0)`` over the dispatch
+    axes where their count divides them (else, as for the one group of a
+    one-token batch, they stay placed as they are), the experts keep
+    their shards over ``model`` (an FSDP shard of their FFN dim is
+    gathered), and y comes out partial over the expert shards; aux, the
+    same on every expert shard, is split evenly among them, so that its
+    gradient is counted once."""
+    mesh = xg.device_mesh
+    names = mesh.mesh_dim_names
+    xg = spmd.settle(xg)
+    axes = _GROUP_AXES if _GROUP_AXES and xg.shape[0] % math.prod(
+        mesh.size(names.index(a)) for a in _GROUP_AXES) == 0 else None
+    x_pl = tuple(spmd.Shard(0) if axes and n in axes
+                 else spmd.Replicate() if axes else pl
+                 for n, pl in zip(names, xg.placements))
+    w_pl = tuple(spmd.Shard(0) if pl == spmd.Shard(0) else spmd.Replicate()
+                 for pl in p["wg"].placements)
+    n_e = math.prod(n for n, pl in zip(mesh.shape, w_pl)
+                    if pl == spmd.Shard(0))
+    e0 = spmd.offset(p["wg"], 0)
+    out_pl = tuple(spmd.Partial() if w == spmd.Shard(0) else x
+                   for x, w in zip(x_pl, w_pl))
+
+    def fn(xl, router, wg, wu, wd):
+        y, aux = _grouped({"router": router, "wg": wg, "wu": wu, "wd": wd},
+                          xl, top_k, cap, act, e0)
+        return y, aux / n_e
+
+    return spmd.local(fn, mesh, (xg, p["router"], p["wg"], p["wu"], p["wd"]),
+                      (x_pl, tuple(spmd.Replicate() for _ in names),
+                       w_pl, w_pl, w_pl), (out_pl, out_pl))
 
 
 def _frozen(t) -> nn.Parameter:

@@ -27,6 +27,7 @@ import math
 
 import torch
 
+from repro_torch import spmd
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked_ref as _ssd_chunked
 from repro_torch.kernels.ssm_scan.ops import ssm_scan_op
@@ -110,7 +111,11 @@ def softplus(x):
 
 def _causal_conv(x, w, b):
     """Depthwise causal conv as a sum of K shifted products. x: [B,S,C];
-    w: [K,C]."""
+    w: [K,C]. DTensors go through ``spmd.scan``: a channel's conv over
+    the whole sequence is local to its shard."""
+    if spmd.is_dtensor(x):
+        return spmd.scan(_causal_conv, x, w, b, maps=({2: 1}, {2: 0}),
+                         channel=2)
     K, S = w.shape[0], x.shape[1]
     pad = torch.nn.functional.pad(x, (0, 0, K - 1, 0))
     out = sum(pad[:, i: i + S, :] * w[i] for i in range(K))
@@ -208,9 +213,10 @@ def mamba1_forward(p, x, dims: SSMDims, backend: str = "auto"):
     """Full-sequence Mamba-1 block. x: [B,S,D] -> [B,S,D]. ``backend`` is
     passed to ``ssm_scan_op`` for CUDA tensors."""
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
-    xin, z = xz.chunk(2, dim=-1)
+    xin, z = spmd.halves(xz)
     xin = act_fn("silu")(_causal_conv(xin, p["conv_w"], p["conv_b"]))
-    dbc = torch.einsum("bsd,de->bse", xin, p["x_dbc"])
+    # the product over a sharded d_inner is partial: reduce it once here
+    dbc = spmd.settle(torch.einsum("bsd,de->bse", xin, p["x_dbc"]))
     dt_r, Bm, Cm = torch.split(
         dbc, [dims.dt_rank, dims.d_state, dims.d_state], dim=-1)
     dt = _dt_softplus(torch.einsum("bsr,rd->bsd", dt_r, p["dt_proj"]),
@@ -223,6 +229,13 @@ def mamba1_forward(p, x, dims: SSMDims, backend: str = "auto"):
             Bm.to(xin.dtype).contiguous(), Cm.to(xin.dtype).contiguous(),
             backend=backend,
         )
+    elif spmd.is_dtensor(xin):
+        # local_map, as the kernel's route: a channel's scan is local
+        y = spmd.scan(
+            lambda u, d, a, b, c: _selective_scan_chunked(u, d, a, b, c,
+                                                          dims.chunk),
+            xin, dt, A, Bm.float(), Cm.float(),
+            maps=({0: 0, 2: 2}, {2: 0}, {0: 0}, {0: 0}), channel=2)
     else:
         y = _selective_scan_chunked(xin, dt, A, Bm.float(), Cm.float(),
                                     dims.chunk)
@@ -244,10 +257,10 @@ def mamba1_decode(p, x, dims: SSMDims, h, conv_buf):
     [B,d_conv-1,di] (the trailing inputs). Returns (out [B,1,D], h,
     conv_buf)."""
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
-    xin, z = xz.chunk(2, dim=-1)                              # [B,1,di]
+    xin, z = spmd.halves(xz)                              # [B,1,di]
     xc, conv_buf = _conv_step(p, conv_buf, xin)
     xc = xc[:, None, :]
-    dbc = torch.einsum("bsd,de->bse", xc, p["x_dbc"])
+    dbc = spmd.settle(torch.einsum("bsd,de->bse", xc, p["x_dbc"]))
     dt_r, Bm, Cm = torch.split(
         dbc, [dims.dt_rank, dims.d_state, dims.d_state], dim=-1)
     dt = _dt_softplus(torch.einsum("bsr,rd->bsd", dt_r, p["dt_proj"]),
@@ -273,9 +286,10 @@ def mamba2_forward(p, x, dims: SSMDims, backend: str = "auto"):
     B_, S, _ = x.shape
     H, P, N = dims.n_heads, dims.head_dim, dims.d_state
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
-    xin, z = xz.chunk(2, dim=-1)
+    xin, z = spmd.halves(xz)
     xin = act_fn("silu")(_causal_conv(xin, p["conv_w"], p["conv_b"]))
-    bcdt = torch.einsum("bsd,de->bse", xin, p["x_bcdt"])
+    # the product over a sharded d_inner is partial: reduce it once here
+    bcdt = spmd.settle(torch.einsum("bsd,de->bse", xin, p["x_bcdt"]))
     Bm, Cm, dt_h = torch.split(bcdt, [N, N, H], dim=-1)
     dt = _dt_softplus(dt_h, p["dt_bias"])                     # [B,S,H]
     A = -torch.exp(p["A_log"])                                # [H]
@@ -287,6 +301,12 @@ def mamba2_forward(p, x, dims: SSMDims, backend: str = "auto"):
             Bm.to(xh.dtype).contiguous(), Cm.to(xh.dtype).contiguous(),
             backend=backend, chunk=dims.chunk,
         )
+    elif spmd.is_dtensor(xh):
+        # local_map, as the kernel's route: a head's scan is local
+        y = spmd.scan(
+            lambda x_, d, a, b, c: _ssd_chunked(x_, d, a, b, c, dims.chunk),
+            xh, dt, A, Bm, Cm,
+            maps=({0: 0, 2: 2}, {2: 0}, {0: 0}, {0: 0}), channel=2)
     else:
         y = _ssd_chunked(xh, dt, A, Bm, Cm, dims.chunk)
     y = y + xh * p["D_head"][None, None, :, None].to(x.dtype)
@@ -302,9 +322,9 @@ def mamba2_decode(p, x, dims: SSMDims, h, conv_buf):
     B_ = x.shape[0]
     H, P, N = dims.n_heads, dims.head_dim, dims.d_state
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
-    xin, z = xz.chunk(2, dim=-1)
+    xin, z = spmd.halves(xz)
     xc, conv_buf = _conv_step(p, conv_buf, xin)               # [B,di]
-    bcdt = torch.einsum("bd,de->be", xc, p["x_bcdt"])
+    bcdt = spmd.settle(torch.einsum("bd,de->be", xc, p["x_bcdt"]))
     Bm, Cm, dt_h = torch.split(bcdt, [N, N, H], dim=-1)
     dt = _dt_softplus(dt_h, p["dt_bias"])                     # [B,H]
     A = -torch.exp(p["A_log"])

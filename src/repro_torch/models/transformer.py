@@ -44,6 +44,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spmd
 from repro_torch._device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -52,6 +53,7 @@ from repro_torch.models.layers import (
     attention,
     attention_decode,
     cross_attention,
+    drawing,
     init_attention,
     init_mla,
     init_mlp,
@@ -123,6 +125,72 @@ def _zeros_param(n: int, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def embed_lookup(embed, tokens):
+    """``embed[tokens]``. A DTensor table goes through ``spmd.local``:
+    DTensor has no rule for a lookup into a vocabulary-sharded table, and
+    its propagation of one leaves a mask that later ops cannot reduce on
+    ``meta``. Each rank looks up the tokens in its slice of the vocabulary,
+    zeros elsewhere, and the rows come out partial over the vocabulary
+    shards."""
+    if not spmd.is_dtensor(embed):
+        return embed[tokens.long()]
+    mesh = embed.device_mesh
+    tok_pl = spmd.settle(tokens).placements if spmd.is_dtensor(tokens) \
+        else (spmd.Replicate(),) * mesh.ndim
+    v0 = spmd.offset(embed, 0)
+    sharded = spmd.Shard(0) in embed.placements
+    out_pl = tuple(spmd.Partial() if pe == spmd.Shard(0) else pt
+                   for pe, pt in zip(embed.placements, tok_pl))
+
+    def fn(e, t):
+        if not sharded:
+            return e[t.long()]
+        t = t.long() - v0
+        ok = (t >= 0) & (t < e.shape[0])
+        rows = e[t.clamp(0, e.shape[0] - 1)]
+        return torch.where(ok[..., None], rows, rows.new_zeros(()))
+
+    return spmd.settle(spmd.local(fn, mesh, (embed, tokens),
+                                  (embed.placements, tok_pl), out_pl))
+
+
+def _label_logprob_on_mesh(logits, labels):
+    """``log_softmax(logits)`` at ``labels`` (clamped to 0) for DTensor
+    logits [B,S,V]. Where V is sharded, each rank reduces its slice
+    through ``spmd.local`` (the max, the sum of exponentials, the label's
+    logit when it is in the slice) and DTensor all-reduces the [B,S]
+    partials, as GSPMD does, instead of gathering the logits."""
+    logits = spmd.settle(logits)
+    mesh = logits.device_mesh
+    pl = logits.placements
+    rows = spmd.follow(pl, {0: 0, 1: 1})
+    if spmd.Shard(2) not in pl:
+        # local too: DTensor's backward of the gather would scatter into a
+        # replicated zero tensor of the global logits' shape
+        return spmd.local(
+            lambda lg, lab: torch.gather(torch.log_softmax(lg, dim=-1), -1,
+                                         lab.clamp_min(0)[..., None])[..., 0],
+            mesh, (logits, labels), (pl, rows), rows)
+    v0 = spmd.offset(logits, 2)
+    vocab = [p == spmd.Shard(2) for p in pl]
+    mx = spmd.local(lambda lg: lg.detach().amax(-1), mesh, (logits,), (pl,),
+                    tuple(spmd.Partial("max") if v else r
+                          for v, r in zip(vocab, rows)))
+    mx = spmd.settle(mx)
+
+    def part(lg, m, lab):
+        lab = lab.long() - v0
+        ok = (lab >= 0) & (lab < lg.shape[-1])
+        picked = torch.gather(lg, -1, lab.clamp(0, lg.shape[-1] - 1)[..., None])
+        picked = torch.where(ok, picked[..., 0], 0.0)
+        return torch.exp(lg - m[..., None]).sum(-1), picked
+
+    out = tuple(spmd.Partial() if v else r for v, r in zip(vocab, rows))
+    sumexp, picked = spmd.local(part, mesh, (logits, mx, labels),
+                                (pl, rows, rows), (out, out))
+    return picked - (mx + torch.log(sumexp))
+
+
 class DecoderBlock(nn.Module):
     """Pre-norm attention (GQA or MLA), optional cross-attention to an
     encoder memory (``cross``), and a gated MLP or a MoE FFN (``moe``): one
@@ -156,20 +224,21 @@ class DecoderBlock(nn.Module):
         ``memory`` (when given) and the FFN. Returns (x, aux), aux None
         without MoE (no device op for a constant 0)."""
         if memory is not None:
-            h = rms_norm(x, self.ln_x, cfg.norm_eps)
-            x = x + cross_attention(self.xattn, h, memory, _attn_dims(cfg))
-        h = rms_norm(x, self.ln2, cfg.norm_eps)
+            h = spmd.settle_grad(rms_norm(x, self.ln_x, cfg.norm_eps))
+            x = x + spmd.settle(cross_attention(self.xattn, h, memory,
+                                                _attn_dims(cfg)))
+        h = spmd.settle_grad(rms_norm(x, self.ln2, cfg.norm_eps))
         if self.is_moe:
             h, aux = self.moe(h, cfg.top_k, cfg.capacity_factor, cfg.act)
         else:
             h, aux = mlp(self.mlp, h, cfg.act), None
-        return x + h, aux
+        return x + spmd.settle(h), aux
 
     def forward(self, x, cfg: ModelConfig, positions, window: int,
                 backend: str, memory=None, causal: bool = True):
         """Returns (x, aux): aux the MoE's load-balance loss, else None.
         ``causal`` False is the encoder's bidirectional self-attention."""
-        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        h = spmd.settle_grad(rms_norm(x, self.ln1, cfg.norm_eps))
         if cfg.use_mla:
             h = mla_attention(self.attn, h, _mla_dims(cfg), positions)
         elif causal:
@@ -177,7 +246,7 @@ class DecoderBlock(nn.Module):
                           backend)
         else:
             h = cross_attention(self.attn, h, h, _attn_dims(cfg))
-        return self._cross_and_ffn(x + h, cfg, memory)
+        return self._cross_and_ffn(x + spmd.settle(h), cfg, memory)
 
     def decode(self, x, cfg: ModelConfig, cache: dict, pos, window: int,
                backend: str, memory=None):
@@ -191,7 +260,7 @@ class DecoderBlock(nn.Module):
             h, _, _ = attention_decode(self.attn, h, _attn_dims(cfg),
                                        cache["k"], cache["v"], pos, window,
                                        backend)
-        return self._cross_and_ffn(x + h, cfg, memory)[0]
+        return self._cross_and_ffn(x + spmd.settle(h), cfg, memory)[0]
 
 
 class SSMBlock(nn.Module):
@@ -204,9 +273,9 @@ class SSMBlock(nn.Module):
         self.ssm = _params(init_ssm(gen, self.dims, dtype, device))
 
     def forward(self, x, cfg: ModelConfig, backend: str):
-        h = rms_norm(x, self.ln, cfg.norm_eps)
+        h = spmd.settle_grad(rms_norm(x, self.ln, cfg.norm_eps))
         fwd = mamba1_forward if self.dims.version == 1 else mamba2_forward
-        return x + fwd(self.ssm, h, self.dims, backend)
+        return x + spmd.settle(fwd(self.ssm, h, self.dims, backend))
 
     def decode(self, x, cfg: ModelConfig, h_state, conv_buf):
         """One token; writes the new recurrent state and conv buffer into
@@ -217,7 +286,7 @@ class SSMBlock(nn.Module):
                                    conv_buf)
         h_state.copy_(h_new)
         conv_buf.copy_(conv_new)
-        return x + out
+        return x + spmd.settle(out)
 
 
 class Model(nn.Module):
@@ -287,6 +356,37 @@ class Model(nn.Module):
                 DecoderBlock(cfg, gen, dt, device, moe=cfg.uses_moe)
                 for _ in range(cfg.n_layers - nd))
 
+    @classmethod
+    def on_mesh(cls, cfg: ModelConfig, mesh, specs: dict, *, seed: int = 0,
+                device=None, backend: str = "auto",
+                init_device="cpu") -> "Model":
+        """``Model(cfg, seed=seed, device=device, backend=backend,
+        init_device=init_device)`` with every parameter a DTensor on
+        ``mesh`` placed by ``specs`` (name -> spec, as
+        ``launch/sharding.py::param_specs`` gives): the same weights, but
+        each is cut to this rank's shard as soon as it is drawn, so a rank
+        holds its shards and one whole weight (in f32 on ``init_device``
+        and in its dtype on ``device``) at most, never the whole model."""
+        order = iter(cls.draw_order(cfg))
+        with drawing(lambda t: spmd.distribute(t, mesh, specs[next(order)])):
+            model = cls(cfg, seed=seed, device=device, backend=backend,
+                        init_device=init_device)
+        # the rest (norms, biases, the SSMs' A_log, D, dt_bias) is made
+        # whole, each of a size of the width
+        return spmd.distribute_model(model, mesh, specs)
+
+    @classmethod
+    def draw_order(cls, cfg: ModelConfig) -> list:
+        """The names of the parameters that ``normal_init`` draws, in the
+        order it draws them from the seed."""
+        seen = []
+        with drawing(lambda t: seen.append(t.untyped_storage()._cdata)
+                     or t):
+            meta = cls(cfg, device="meta")
+        name = {p.untyped_storage()._cdata: k
+                for k, p in meta.named_parameters()}
+        return [name[c] for c in seen]
+
     def init(self, seed: int, init_device="cpu") -> "Model":
         """Redraw every weight from ``seed`` with an explicit
         ``torch.Generator`` on ``init_device``, then move it to the model's
@@ -297,7 +397,7 @@ class Model(nn.Module):
 
     def _logits(self, x):
         cfg = self.cfg
-        x = rms_norm(x, self.ln_f, cfg.norm_eps)
+        x = spmd.settle_grad(rms_norm(x, self.ln_f, cfg.norm_eps))
         unembed = self.embed.T if cfg.tie_embeddings else self.unembed
         logits = torch.einsum("bsd,dv->bsv", x, unembed)
         return softcap(logits, cfg.final_logit_softcap)
@@ -325,13 +425,14 @@ class Model(nn.Module):
                 return checkpoint(fn, *args, use_reentrant=False, **kw)
             return fn(*args, **kw)
 
-        x = self.embed[batch["tokens"].long()]
+        x = embed_lookup(self.embed, batch["tokens"])
         if cfg.frontend == "vision" and "media" in batch:
             x = torch.cat([batch["media"].to(x.dtype), x], dim=1)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux_total = spmd.like(torch.zeros((), dtype=torch.float32,
+                                          device=x.device), x)
         if cfg.arch_type == "ssm":
             for block in self.ssm_stack:
                 x = run(block, x, cfg, backend)
@@ -383,8 +484,12 @@ class Model(nn.Module):
         logits, aux = self.forward(batch, remat=remat)
         labels = batch["labels"].long()
         logits_txt = logits[:, logits.shape[1] - labels.shape[1]:, :]
-        logp = torch.log_softmax(logits_txt.float(), dim=-1)
-        ll = torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+        if spmd.is_dtensor(logits_txt):
+            ll = _label_logprob_on_mesh(logits_txt.float(), labels)
+        else:
+            logp = torch.log_softmax(logits_txt.float(), dim=-1)
+            ll = torch.gather(logp, -1,
+                              labels.clamp_min(0)[..., None])[..., 0]
         mask = (labels >= 0).float()
         ce = -(ll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
         return ce + cfg.router_aux_weight * aux
@@ -450,7 +555,7 @@ class Model(nn.Module):
         dominate the step); ``pos`` is replaced by ``pos + 1``. The returned dict holds the same tensors."""
         cfg, backend = self.cfg, self.backend
         pos = state["pos"]
-        x = self.embed[tokens.long()][:, None, :]          # [B,1,D]
+        x = embed_lookup(self.embed, tokens)[:, None, :]   # [B,1,D]
         if cfg.arch_type == "ssm":
             for i, block in enumerate(self.ssm_stack):
                 x = block.decode(x, cfg, state["h"][i], state["conv"][i])

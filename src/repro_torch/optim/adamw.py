@@ -25,6 +25,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import spmd
+
 
 class OptState(NamedTuple):
     step: torch.Tensor      # 0-d int32
@@ -93,11 +95,14 @@ def adamw_update(cfg: AdamWConfig, grads, opt: OptState, params) -> dict:
         grads = {k: p.grad for k, p in params.items()}
     grads = {k: torch.zeros_like(p) if grads.get(k) is None else grads[k]
              for k, p in params.items()}
+    # on a mesh, each gradient is reduced once, onto its moments' shards
+    # (an all-reduce over the batch, or ZeRO-1's reduce-scatter)
+    grads = {k: spmd.placed_as(g, opt.mu[k]) for k, g in grads.items()}
     gnorm = global_norm(grads)
     # a 0-d tensor numerator: a Python scalar over a tensor is computed
     # as the scalar times a reciprocal in torch, not a true division
-    clip = torch.full((), cfg.clip_norm, dtype=torch.float32,
-                      device=gnorm.device)
+    clip = spmd.like(torch.full((), cfg.clip_norm, dtype=torch.float32,
+                                device=gnorm.device), gnorm)
     scale = torch.clamp_max(clip / torch.clamp_min(gnorm, 1e-9), 1.0)
     opt.step.add_(1)
     lr = cosine_schedule(cfg, opt.step)

@@ -1,17 +1,24 @@
-"""Roofline terms of one step on one H100: the port of
+"""Roofline terms of one step per H100: the port of
 ``repro/roofline/hlo.py``.
 
 Hardware model: NVIDIA H100 SXM, from NVIDIA's data sheet (the card at its
 700 W limit): 989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s f32
-outside them, 3.35 TB/s of HBM3.
+outside them, 3.35 TB/s of HBM3; and between cards, 8 cards a node joined
+by NVLink 4 at 450 GB/s a direction (900 GB/s both ways), and one 400 Gb/s
+NDR InfiniBand port a card, 50 GB/s, between nodes. These are data-sheet
+figures, not measurements.
 
-    compute term    = dot FLOPs / peak FLOP/s of the config's dtype
-    memory term     = (argument bytes + dot bytes) / HBM bytes/s
-    collective term = 0: one card has no collective
+    compute term    = dot FLOPs a chip / peak FLOP/s of the config's dtype
+    memory term     = (argument bytes / chips + dot bytes a chip) / HBM
+    collective term = sum over the collectives' groups of their wire bytes
+                      a chip / the link of the group
 
-The dot FLOPs and bytes come from ``roofline/trace.py``: every matmul of
-the step as the eager program runs it, each counted as often as it runs,
-which is what the reference's trip-weighted HLO analysis counts.
+A group whose ranks all sit in one node (ranks laid out row-major, 8 a
+node, as ``launch/mesh.py`` lays them) is charged at NVLink's rate, any
+other at InfiniBand's: on 16 x 16 both axes cross nodes. The dot FLOPs,
+dot bytes and wire bytes come from ``roofline/trace.py``: every matmul and
+collective one rank runs, each counted as often as it runs, which is what
+the reference's trip-weighted per-partition HLO analysis counts.
 """
 
 from __future__ import annotations
@@ -22,6 +29,10 @@ BF16_OPS_PER_S = 989e12           # H100 SXM, dense bf16 tensor cores
 SMS = 132                         # H100 SXM
 BOOST_CLOCK_HZ = 1.98e9           # H100 SXM, data sheet's maximum boost
 EX2_PER_CLOCK_SM = 16             # special-function unit results a clock
+
+NVLINK_BYTES_PER_S = 450e9       # NVLink 4, a direction, a card
+IB_BYTES_PER_S = 50e9            # one 400 Gb/s NDR port a card
+CARDS_PER_NODE = 8               # an HGX H100 node
 
 #: peak FLOP/s by the config's dtype (``ModelConfig.dtype``)
 PEAK_OPS_PER_S = {"bfloat16": BF16_OPS_PER_S, "float32": FP32_OPS_PER_S}
@@ -55,28 +66,49 @@ def model_flops(cfg, shape) -> float:
     return flops
 
 
-def roofline_terms(cfg, shape, counts: dict, arg_bytes: float) -> dict:
-    """The reference's roofline terms (seconds) on one card, with its keys,
-    the bottleneck and the useful-FLOPs ratio. ``counts`` is
-    ``trace.StepTrace.counts()``: ``dot_flops`` and ``dot_bytes``;
-    ``arg_bytes`` the step's arguments (parameters, optimizer moments,
-    decode state, batch), each read or written once a step."""
+def link_bytes_per_s(ranks) -> float:
+    """The rate a collective over ``ranks`` is charged at: NVLink inside
+    one node, InfiniBand across nodes."""
+    nodes = {r // CARDS_PER_NODE for r in ranks}
+    return NVLINK_BYTES_PER_S if len(nodes) == 1 else IB_BYTES_PER_S
+
+
+def collective_seconds(wire_by_group: dict) -> float:
+    """Σ wire bytes / link rate over the groups (group ranks -> bytes)."""
+    return sum(b / link_bytes_per_s(g) for g, b in wire_by_group.items())
+
+
+def roofline_terms(cfg, shape, counts: dict, arg_bytes: float,
+                   n_chips: int = 1) -> dict:
+    """The reference's roofline terms (seconds, a chip of ``n_chips``),
+    with its keys, the bottleneck of the three and the useful-FLOPs
+    ratio. ``counts`` is ``trace.StepTrace.counts()`` of one rank:
+    ``dot_flops``, ``dot_bytes`` and, on a mesh, ``collectives`` and
+    ``wire_by_group``; ``arg_bytes`` the step's global arguments
+    (parameters, optimizer moments, decode state, batch), each read or
+    written once a step, a chip reading its share."""
     flops = counts["dot_flops"]
     dot_bytes = counts["dot_bytes"]
+    wire = counts.get("collectives", {}).get("total_wire_bytes", 0.0)
     mf = model_flops(cfg, shape)
+    arg_chip = arg_bytes / n_chips
     compute_s = flops / PEAK_OPS_PER_S[cfg.dtype]
-    memory_s = (arg_bytes + dot_bytes) / HBM_BYTES_PER_S
+    memory_s = (arg_chip + dot_bytes) / HBM_BYTES_PER_S
+    collective_s = collective_seconds(counts.get("wire_by_group", {}))
+    mf_chip = mf / n_chips
     terms = {
         "compute_s": compute_s,
         "memory_s": memory_s,
-        "collective_s": 0.0,
+        "collective_s": collective_s,
         "hlo_flops_per_chip": flops,
         "model_flops": mf,
-        "model_flops_per_chip": mf,
-        "useful_flops_ratio": mf / flops if flops > 0 else -1.0,
-        "arg_bytes_per_chip": arg_bytes,
+        "model_flops_per_chip": mf_chip,
+        "useful_flops_ratio": mf_chip / flops if flops > 0 else -1.0,
+        "arg_bytes_per_chip": arg_chip,
         "dot_bytes_per_chip": dot_bytes,
-        "wire_bytes_per_chip": 0.0,
+        "wire_bytes_per_chip": wire,
     }
-    terms["bottleneck"] = "compute" if compute_s >= memory_s else "memory"
+    terms["bottleneck"] = max(
+        ("compute", compute_s), ("memory", memory_s),
+        ("collective", collective_s), key=lambda kv: kv[1])[0]
     return terms

@@ -23,6 +23,18 @@ as it runs:
 The same mode runs on a CUDA or CPU tensor; there it also counts what a
 kernel wrapper computes through aten ops, and nothing a custom kernel
 computes.
+
+On a mesh (DTensors, ``launch/sharding.py``) it counts what one rank runs,
+as the reference's per-partition HLO does: the mode declines every op on
+DTensors (it returns ``NotImplemented``), so DTensor splits the op into
+the ops on the local shards and the collectives, which the mode then sees
+and counts, each as it runs. It never divides a global count by the mesh
+size. The ops DTensor runs on fake tensors to propagate shapes are not
+counted. Each collective (``_c10d_functional``) is counted by kind with the
+reference's wire bytes (``repro/roofline/hlo.py``): an all-gather its
+result's bytes, an all-reduce twice its operand's, the others their
+operand's; and by the ranks of its group (``wire_by_group``), which
+``terms.py`` charges at the link between them.
 """
 
 from __future__ import annotations
@@ -30,16 +42,49 @@ from __future__ import annotations
 import weakref
 
 import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
+#: the reference's collective kinds (``hlo.py``'s keys)
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+_FUNCTIONAL = {"all_gather_into_tensor": "all-gather",
+               "all_reduce": "all-reduce",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_to_all_single": "all-to-all"}
+
 
 def tensor_bytes(tree) -> int:
     """numel × itemsize summed over the tensors of ``tree`` (a pytree):
-    what the reference's ``_tree_bytes`` sums over its leaves."""
+    what the reference's ``_tree_bytes`` sums over its leaves. A DTensor
+    counts its global shape."""
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
                if isinstance(t, torch.Tensor))
+
+
+def local_bytes(tree) -> int:
+    """``tensor_bytes`` of what this rank holds: a DTensor counts its
+    local shard."""
+    return tensor_bytes([t.to_local() if isinstance(t, DTensor) else t
+                         for t in tree_leaves(tree)])
+
+
+def _local(t):
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _fake_mode() -> bool:
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+def _group_ranks(name: str) -> tuple:
+    pg = dist.distributed_c10d._resolve_process_group(name)
+    return tuple(dist.get_process_group_ranks(pg))
 
 
 class StepTrace(TorchDispatchMode):
@@ -53,10 +98,12 @@ class StepTrace(TorchDispatchMode):
         self.dot_bytes = 0
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.collectives = dict.fromkeys(KINDS, 0)
+        self.wire_by_group: dict[tuple, int] = {}
         self._sizes: dict[int, int] = {}
         for t in tree_leaves(args):
             if isinstance(t, torch.Tensor):
-                self._hold(t)
+                self._hold(_local(t))
         self.arg_bytes = self.live_bytes
 
     def _hold(self, t: torch.Tensor) -> None:
@@ -73,9 +120,25 @@ class StepTrace(TorchDispatchMode):
     def _release(self, key: int) -> None:
         self.live_bytes -= self._sizes.pop(key)
 
+    def _collective(self, func, args, out) -> None:
+        kind = _FUNCTIONAL.get(func._overloadpacket.__name__)
+        if func.namespace != "_c10d_functional" or kind is None:
+            return
+        wire = tensor_bytes(out) if kind == "all-gather" else \
+            tensor_bytes(args[0]) * (2 if kind == "all-reduce" else 1)
+        self.collectives[kind] += wire
+        group = _group_ranks(args[-1])
+        self.wire_by_group[group] = self.wire_by_group.get(group, 0) + wire
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        leaves = tree_leaves((args, kwargs))
+        if any(isinstance(t, DTensor) for t in leaves):
+            return NotImplemented
+        if _fake_mode() or any(isinstance(t, FakeTensor) for t in leaves):
+            return func(*args, **kwargs)
         out = func(*args, **kwargs)
+        self._collective(func, args, out)
         formula = flop_registry.get(func._overloadpacket)
         if formula is not None:
             self.dot_flops += formula(*args, **kwargs, out_val=out)
@@ -87,9 +150,15 @@ class StepTrace(TorchDispatchMode):
 
     def counts(self) -> dict:
         """The counts so far: ``dot_flops``, ``dot_bytes``,
-        ``arg_bytes``, ``peak_bytes``, ``temp_bytes``."""
+        ``arg_bytes``, ``peak_bytes``, ``temp_bytes``; ``collectives``
+        (wire bytes by kind and ``total_wire_bytes``, the reference's
+        keys) and ``wire_by_group`` (group ranks -> wire bytes)."""
+        coll = {k: float(v) for k, v in self.collectives.items()}
+        coll["total_wire_bytes"] = float(sum(self.collectives.values()))
         return {"dot_flops": float(self.dot_flops),
                 "dot_bytes": float(self.dot_bytes),
                 "arg_bytes": self.arg_bytes,
                 "peak_bytes": self.peak_bytes,
-                "temp_bytes": self.peak_bytes - self.arg_bytes}
+                "temp_bytes": self.peak_bytes - self.arg_bytes,
+                "collectives": coll,
+                "wire_by_group": dict(self.wire_by_group)}

@@ -322,5 +322,6 @@ def test_port_imports_without_jax_or_repro():
                  "analysis.cli", "analysis.fixtures.racy_kernel",
                  "kernels._autograd", "optim.adamw", "data.pipeline",
                  "checkpoint.checkpoint", "launch.train",
-                 "launch.dryrun", "roofline.terms", "roofline.trace"):
+                 "launch.dryrun", "roofline.terms", "roofline.trace",
+                 "launch.mesh", "launch.sharding", "spmd"):
         assert f"repro_torch.{name}" in names, name

@@ -17,9 +17,11 @@ analysis CLI's report, against the JAX package where it has them.
 - Mamba-1's blocked scan (the ``meta`` route): the step-by-step oracle's
   values and gradients on the CPU, within 1e-5 of their max (measured
   ≤ 1e-6: the same f32 recurrence, its products in another order);
-- full-size records, one a family at ``DECODE_32K`` (a second's trace
-  each): the reference's record keys, ``collective_s`` 0, a bottleneck;
-  the CLI writes its record, and ``--multi-pod`` raises;
+- full-size records on one card (``mesh="1xH100"``), one a family at
+  ``DECODE_32K`` (a second's trace each): the reference's record keys,
+  ``collective_s`` 0, a bottleneck; the CLI writes its record
+  (``--single-card``); ``--multi-pod`` gives the 2 x 16 x 16 record, one
+  rank's counts with a collective term, and refuses ``--single-card``;
 - the analysis CLI writes ``analysis_report.json`` under ``--report-dir``
   and takes fixtures from ``REPRO_ANALYSIS_FIXTURE`` (``race`` fails it).
 
@@ -29,6 +31,10 @@ The traced counts against the reference's compiled HLO:
 
 import hashlib
 import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import pytest
@@ -228,8 +234,8 @@ MEMORY_KEYS = ["argument_size_in_bytes", "output_size_in_bytes",
                                   "seamless-m4t-medium", "falcon-mamba-7b",
                                   "zamba2-7b"])
 def test_full_size_decode_record(arch):
-    rec = dryrun.dry_run_one(arch, "decode_32k", out_dir=None,
-                             verbose=False)
+    rec = dryrun.dry_run_one(arch, "decode_32k", mesh="1xH100",
+                             out_dir=None, verbose=False)
     assert list(rec)[:len(RECORD_KEYS)] == RECORD_KEYS
     assert all(k in rec["memory"] for k in MEMORY_KEYS)
     assert rec["mesh"] == "1xH100" and rec["n_chips"] == 1
@@ -246,25 +252,57 @@ def test_full_size_decode_record(arch):
 
 def test_cli_writes_a_record(tmp_path, capsys):
     dryrun.main(["--arch", "gemma2-2b", "--shape", "long_500k",
-                 "--out", str(tmp_path)])
+                 "--single-card", "--out", str(tmp_path)])
     path = tmp_path / "gemma2-2b__long_500k__1xH100.json"
     rec = json.loads(path.read_text())
     assert rec == json.loads(capsys.readouterr().out.split("\n", 1)[1])
     assert rec["roofline"]["bottleneck"] == "memory"
     header, rule, row = dryrun.table([rec]).split("\n")
-    assert header.count("|") == rule.count("|") == row.count("|") == 11
-    assert row.startswith("| gemma2-2b | long_500k | ")
+    assert header.count("|") == rule.count("|") == row.count("|") == 13
+    assert row.startswith("| gemma2-2b | long_500k | 1xH100 | ")
     assert row.endswith(" | memory | 61.06 | 61.12 |")
 
 
 def test_multi_pod_raises(tmp_path):
-    with pytest.raises(ValueError, match="no production mesh"):
-        dryrun.main(["--arch", "qwen2.5-3b", "--shape", "train_4k",
-                     "--multi-pod", "--out", str(tmp_path)])
-    with pytest.raises(ValueError, match="no production mesh"):
-        dryrun.dry_run_one("qwen2.5-3b", "train_4k", multi_pod=True,
-                           out_dir=None)
+    """``--multi-pod`` traces the 2 x 16 x 16 mesh (512 ranks under a fake
+    group) and refuses ``--single-card`` beside it; the record is one
+    rank's."""
+    with pytest.raises(SystemExit):
+        dryrun.main(["--arch", "qwen2.5-3b", "--shape", "decode_32k",
+                     "--multi-pod", "--single-card", "--out", str(tmp_path)])
+    with pytest.raises(ValueError, match="exclude"):
+        dryrun.dry_run_one("qwen2.5-3b", "decode_32k", multi_pod=True,
+                           mesh="1xH100", out_dir=None)
     assert not list(tmp_path.iterdir())
+    # a process group is global: the fake one is set up in a process of
+    # its own
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(Path(__file__).parent.parent / "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen2.5-3b", "--shape", "decode_32k", "--multi-pod", "--out",
+         str(tmp_path)], env=env, capture_output=True, text=True,
+        timeout=300)
+    assert run.returncode == 0, run.stderr[-4000:]
+    rec = json.loads(
+        (tmp_path / "qwen2.5-3b__decode_32k__2x16x16.json").read_text())
+    one = dryrun.dry_run_one("qwen2.5-3b", "decode_32k", mesh="1xH100",
+                             out_dir=None, verbose=False)
+    assert rec["mesh"] == "2x16x16" and rec["n_chips"] == 512
+    assert rec["arg_bytes_global"] == one["arg_bytes_global"]
+    # batch 128 over pod x data (32), kv heads (2) do not divide model:
+    # the cache shards its sequence; a chip holds 1/512 of it
+    mem = rec["memory"]["argument_size_in_bytes"]
+    assert one["arg_bytes_global"] / 512 < mem < one["arg_bytes_global"] / 32
+    assert 0 < rec["hlo_flops_raw_per_chip"] < one["hlo_flops_raw_per_chip"]
+    coll = rec["collectives"]
+    assert coll["total_wire_bytes"] == sum(
+        v for k, v in coll.items() if k != "total_wire_bytes") > 0
+    roof = rec["roofline"]
+    assert roof["collective_s"] > 0
+    assert roof["model_flops_per_chip"] == roof["model_flops"] / 512
+    assert roof["arg_bytes_per_chip"] == rec["arg_bytes_global"] / 512
 
 
 # ---------------------------------------------------------------------------

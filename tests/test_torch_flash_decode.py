@@ -35,7 +35,11 @@ from repro.models import layers as L_j
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_decode import flash_decode as fd_t
 from repro_torch.kernels.flash_decode.ops import decode_attention_op
-from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+from repro_torch.kernels.flash_decode.ref import (
+    decode_attention_ref,
+    decode_combine_ref,
+    decode_partials_ref,
+)
 from repro_torch.models import layers as L_t
 
 ATOL = 2e-5
@@ -112,6 +116,29 @@ def test_only_keys_up_to_pos_count():
         k2[b, p + 1:] = v2[b, p + 1:] = 1e3
         k2[b, : p - 7] = v2[b, : p - 7] = -1e3
     np.testing.assert_array_equal(_port(q, k2, v2, pos, window=8), base)
+
+
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (9, 0.0), (0, 20.0)])
+def test_partials_of_slices_combine_to_the_whole(window, cap):
+    """The split pass's plain version over four slices of the cache, each
+    at its own positions (``pos`` less the slice's first, some slices with
+    no visible key), its partials concatenated in order and combined:
+    ``decode_attention_ref`` of the whole cache, as a cache sharded on
+    its sequence is computed on a mesh."""
+    g = torch.Generator().manual_seed(5)
+    B, S, H, K, hd = 3, 32, 4, 2, 16
+    q = torch.randn(B, H, hd, generator=g)
+    k, v = torch.randn(B, S, K, hd, generator=g), torch.randn(
+        B, S, K, hd, generator=g)
+    pos = torch.tensor([2, 17, 31], dtype=torch.int32)
+    parts = [decode_partials_ref(q, k[:, s0:s0 + 8], v[:, s0:s0 + 8],
+                                 pos - s0, window=window, softcap=cap)
+             for s0 in range(0, S, 8)]
+    got = decode_combine_ref(torch.cat([p[0] for p in parts], dim=2),
+                             torch.cat([p[1] for p in parts], dim=2),
+                             q.dtype)
+    want = decode_attention_ref(q, k, v, pos, window=window, softcap=cap)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
 
 def test_decode_ref_keeps_bf16():
@@ -261,9 +288,12 @@ def test_n_split_follows_from_the_shapes_alone():
 
 def test_wrapper_never_waits_for_pos():
     """The wrapper reads pos only as a pointer: no .item(), .cpu(), .max(),
-    .tolist() or int() of it, which would wait for the card each layer."""
+    .tolist() or int() of it, which would wait for the card each layer.
+    ``flash_decode`` hands pos to its split pass, ``flash_decode_partials``,
+    which reads it."""
     import inspect
-    src = inspect.getsource(fd_t.flash_decode)
+    src = inspect.getsource(fd_t.flash_decode) + inspect.getsource(
+        fd_t.flash_decode_partials)
     for call in ("pos.item", "pos.cpu", "pos.max", "pos.tolist", "int(pos",
                  "pos.numpy"):
         assert call not in src, call

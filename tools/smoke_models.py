@@ -3,6 +3,7 @@
 checks: quicker than the whole smoke run when only the models changed.
 
     python3 tools/smoke_models.py [paths] [serve] [plain] [train] [dryrun]
+        [mesh]
 
 ``paths``: the full moonshot-v1-16b-a3b, deepseek-v2-236b at full width
 cut to 2 layers and the full seamless-m4t-medium, forward and decode
@@ -12,7 +13,9 @@ encoder-decoder archs served through RAS, kernel vs plain engine
 comparisons (``model_plain_paths``); ``train``: the training legs, their
 kernel-vs-plain gradients, the checkpoint round trip and the backward
 times (``train_phase``); ``dryrun``: the dry run's traces held to the
-card (``dryrun_phase``). No argument runs all five. The
+card (``dryrun_phase``); ``mesh``: the production mesh's route on a 1 x 1
+mesh held to the no-mesh route, and two 16 x 16 records
+(``mesh_phase``). No argument runs all six. The
 kernels are built first, as ``chip_smoke.py`` builds them. Every line is
 JSON; the first names the card and its power limit. Exits non-zero
 without CUDA or when a check fails.
@@ -28,7 +31,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-PHASES = ("paths", "serve", "plain", "train", "dryrun")
+PHASES = ("paths", "serve", "plain", "train", "dryrun", "mesh")
 
 
 def main() -> None:
@@ -65,6 +68,8 @@ def main() -> None:
         smoke.train_phase(dev)
     if "dryrun" in what:
         smoke.dryrun_phase(dev)
+    if "mesh" in what:
+        smoke.mesh_phase(dev)
 
 
 if __name__ == "__main__":
