@@ -195,11 +195,32 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    on both routes: logits and state equal, 2 ``flash_decode`` (2 split,
    2 combine launches) a step. ``decode_attention_op`` of a cache placed
    on its sequence (each rank's split pass, the partials gathered, one
-   combine) equals the plain call, bit for bit. A sequence-sharded q
-   refuses the attention kernel; a DTensor refuses every kernel wrapper;
-   ``make_production_mesh()`` refuses one card. Then the group is torn
-   down and the qwen2.5-3b and granite-8b ``TRAIN_4K`` records on 16 x 16
-   (analytic, a fake 256-rank group) are printed.
+   combine) equals the plain call, bit for bit. A DTensor refuses every
+   kernel wrapper; ``make_production_mesh()`` refuses one card. After
+   phase 25 the group is torn down and the qwen2.5-3b and granite-8b
+   ``TRAIN_4K`` records on 16 x 16 (analytic, a fake 256-rank group) are
+   printed.
+
+25. sequence-sharded q: the attention kernels at a query offset, q's rows
+   [s0, s0 + Sq) against all Sk keys. (a) Both routes against the plain
+   version at the same offset, within 2e-5 / 1.6e-2: the last rank's share
+   on 16 x 16 of gemma2-2b (local, window 4096, and global layers,
+   softcap 50) and llava-next-34b at TRAIN_4K and PREFILL_32K, one in
+   f32, and small ragged shares off the block (the plain version a batch
+   row and a kv-head group at a time where its scores would pass 4 GiB);
+   (b) sixteen ranks emulated on one card at S 4096 (batch 1): the shares'
+   outputs put together bit-equal to the same route's kernel on the whole
+   sequence, and S 4000 (shares of 250 rows, off the block) within the
+   tolerance; (e) ``attention_op`` of a q DTensor placed on its sequence
+   on the 1 x 1 mesh equal bit for bit to the plain tensors' kernel call;
+   (c) with the hint set by hand to ``model`` on the 1 x 1 mesh, the full
+   gemma2-2b's loss and every gradient leaf (1 x 4096, remat) and
+   llava-next-34b at full width cut to 4 layers' prefill logits (1 x
+   4096) bit-equal to the no-mesh route, with 26 + 26 and 4
+   ``flash_attention`` launches, all wgmma; (d) each rank share's kernel
+   time beside its bound from the visible pairs at its offset, the plain
+   version's time and SDPA with ``causal_lower_right`` where no softcap
+   rules it out. Every line names the card and its power limit.
 
 Every phase line carries ``elapsed_s``, the seconds since the start. Then
 one ``{"kernels": [...]}`` line, and as the last line
@@ -209,7 +230,9 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -329,6 +352,16 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+@functools.cache
+def smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 _BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
 
 
@@ -406,52 +439,63 @@ def attn_inputs(i, case, dev):
             for shape in ((B, H, S, hd), (B, K, S, hd), (B, K, S, hd))]
 
 
-def visible_pairs(S: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks leave visible: the score entries whose
-    work the attention must do."""
+def visible_pairs(Sq: int, causal: bool, window: int, Sk: int | None = None,
+                  q_offset: int = 0) -> int:
+    """(query, key) pairs the masks leave visible, query row i at position
+    ``q_offset + i`` against keys 0 .. Sk - 1 (Sk = Sq by default): the
+    score entries whose work the attention must do."""
+    Sk = Sq if Sk is None else Sk
     total = 0
-    for q in range(S):
-        hi = q + 1 if causal else S
+    for q in range(q_offset, q_offset + Sq):
+        hi = q + 1 if causal else Sk
         lo = max(0, q - window + 1) if window > 0 else 0
         total += hi - lo
     return total
 
 
-def attn_bound(case):
-    """(bound ms, bound_by, flops, bytes) of one attention call: QK^T and
-    PV over the visible entries at the peak rate of the inputs' type, and
-    q, k, v read once and o written once at the HBM rate."""
-    _, B, H, K, S, hd, dt, causal, window, _ = case
-    flops = 4 * hd * visible_pairs(S, causal, window) * B * H
-    nbytes = (2 * B * H + 2 * B * K) * S * hd * (2 if dt == torch.bfloat16
-                                                 else 4)
+def attn_bound(B, H, K, Sq, hd, dt, causal, window, Sk=None, q_offset=0):
+    """(bound ms, bound_by, flops, bytes) of one attention call of q
+    [B,H,Sq,hd] at ``q_offset`` against k and v [B,K,Sk,hd]: QK^T and PV
+    over the visible entries at the peak rate of the inputs' type, and q,
+    k, v read once and o written once at the HBM rate."""
+    Sk = Sq if Sk is None else Sk
+    flops = 4 * hd * visible_pairs(Sq, causal, window, Sk, q_offset) * B * H
+    nbytes = (2 * B * H * Sq + 2 * B * K * Sk) * hd * (
+        2 if dt == torch.bfloat16 else 4)
     rate = BF16_OPS_PER_S if dt == torch.bfloat16 else FP32_OPS_PER_S
     ops_ms, bytes_ms = 1e3 * flops / rate, 1e3 * nbytes / HBM_BYTES_PER_S
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
 
 
-def library_attention(q, k, v, causal, window, cap):
+def library_attention(q, k, v, causal, window, cap, q_offset=0):
     """One ``scaled_dot_product_attention`` call computing the same
-    function (k and v expanded to the query heads beforehand), or None
-    where the soft-cap has no counterpart there."""
+    function (k and v expanded to the query heads beforehand), q row i at
+    position ``q_offset + i``, or None where the soft-cap has no
+    counterpart there. A causal share that ends at the last key takes
+    ``causal_lower_right``; a window, or a share that ends before it, a
+    boolean mask."""
     if cap > 0:
         return None
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
 
+    Sq, Sk = q.shape[2], k.shape[2]
     group = q.shape[1] // k.shape[1]
     ke = k.repeat_interleave(group, dim=1)
     ve = v.repeat_interleave(group, dim=1)
-    if window > 0:
-        pos = torch.arange(q.shape[2], device=q.device)
-        diff = pos[:, None] - pos[None, :]
-        mask = diff < window
+    if window == 0 and (not causal or (q_offset == 0 and Sq == Sk)):
+        return lambda: F.scaled_dot_product_attention(q, ke, ve,
+                                                      is_causal=causal)
+    if window == 0 and q_offset + Sq == Sk:
+        mask = causal_lower_right(Sq, Sk)
+    else:
+        diff = (q_offset + torch.arange(Sq, device=q.device)[:, None]
+                - torch.arange(Sk, device=q.device)[None, :])
+        mask = diff < window if window > 0 else diff >= 0
         if causal:
             mask &= diff >= 0
-        return lambda: F.scaled_dot_product_attention(q, ke, ve,
-                                                      attn_mask=mask)
-    return lambda: F.scaled_dot_product_attention(q, ke, ve,
-                                                  is_causal=causal)
+    return lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
 
 
 def ptxas_report(logs: dict, kernels) -> list:
@@ -3118,10 +3162,13 @@ def timed_calls(fn) -> tuple:
 
 
 def mesh_prefill_leg(dev, mesh, arch: str, cfg, seq: int,
-                     want: dict) -> dict:
+                     want: dict, q_hint: str | None = None) -> dict:
     """``arch`` at cut depth, 1 x ``seq``: the forward on the plain route,
-    then the same model placed on the mesh: logits equal, every call's
-    launches ``want``; each route timed after a first, untimed call."""
+    then the same model placed on the mesh, with the attention hint set
+    to ``q_hint`` when one is given: logits equal, every call's launches
+    ``want``; each route timed after a first, untimed call."""
+    from repro_torch.models.layers import set_attention_q_sharding
+
     free_card()
     model = training_model(cfg, dev, seed=0).requires_grad_(False)
     g = torch.Generator(dev).manual_seed(0)
@@ -3132,11 +3179,15 @@ def mesh_prefill_leg(dev, mesh, arch: str, cfg, seq: int,
         plain, plain_counts, plain_ms = timed_calls(
             lambda: model(batch)[0])
         mb = prefill_on_mesh(model, batch, mesh, cfg)
+        if q_hint is not None:
+            set_attention_q_sharding(q_hint)
         meshed, mesh_counts, mesh_ms = timed_calls(
             lambda: local(model(mb)[0]))
+    set_attention_q_sharding(None)
     equal = torch.equal(plain, meshed)
     emit({"phase": "mesh_prefill", "arch": arch, "layers": cfg.n_layers,
-          "tokens": [1, seq], "mesh": "1x1", "logits_bit_equal": equal,
+          "tokens": [1, seq], "mesh": "1x1", "q_hint": q_hint,
+          "logits_bit_equal": equal,
           "max_abs_err": max_abs_err([plain], [meshed]),
           "launches_plain": plain_counts[0], "launches_mesh": mesh_counts[0],
           "ms_plain": plain_ms, "ms_mesh": mesh_ms,
@@ -3264,14 +3315,12 @@ def mesh_sequence_shards(dev, mesh) -> None:
 
 
 def mesh_refusals(dev, mesh) -> None:
-    """A sequence-sharded q refuses the attention kernel, a DTensor every
-    kernel wrapper (both passes of flash-decode), and the production mesh
-    one card."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    """A DTensor refuses every kernel wrapper (both passes of
+    flash-decode), and the production mesh one card."""
+    from torch.distributed.tensor import DTensor, Replicate
 
     from repro_torch.kernels.flash_attention.flash_attention import \
         flash_attention
-    from repro_torch.kernels.flash_attention.ops import attention_op
     from repro_torch.kernels.flash_decode.flash_decode import (
         flash_decode_combine,
         flash_decode_partials,
@@ -3281,15 +3330,12 @@ def mesh_refusals(dev, mesh) -> None:
     from repro_torch.launch.mesh import make_production_mesh
 
     q = torch.zeros((1, 16, 256, 128), dtype=torch.bfloat16, device=dev)
-    seq_q = DTensor.from_local(q, mesh, [Replicate(), Shard(2)])
     whole = DTensor.from_local(q, mesh, [Replicate(), Replicate()])
     dq = DTensor.from_local(q[:, 0], mesh, [Replicate(), Replicate()])
     pos = DTensor.from_local(torch.zeros(1, dtype=torch.int32, device=dev),
                              mesh, [Replicate(), Replicate()])
     refused = {}
     for name, fn, err in (
-            ("sequence-sharded q", lambda: attention_op(seq_q, whole, whole),
-             NotImplementedError),
             ("DTensor into flash_attention",
              lambda: flash_attention(whole, whole, whole), TypeError),
             ("DTensor into flash_decode's split pass",
@@ -3340,40 +3386,399 @@ def mesh_records() -> list:
     return out
 
 
-def mesh_phase(dev) -> dict:
-    """Phase 24: the production mesh's route on a 1 x 1 mesh held to the
-    no-mesh route. Returns each leg's launches."""
+@contextlib.contextmanager
+def mesh_session():
+    """``mesh_group()``'s 1 x 1 mesh for as long as the block runs; then
+    both activation hints reset and the group torn down."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     from repro_torch.launch.dryrun import reset_hints
     from repro_torch.models.config import TRAIN_4K
 
+    mesh = mesh_group()
+    try:
+        yield mesh
+    finally:
+        reset_hints(get_config("qwen2.5-3b"), TRAIN_4K)
+        dist.destroy_process_group()
+
+
+def mesh_phase(dev, mesh) -> dict:
+    """Phase 24: the production mesh's route on a 1 x 1 mesh held to the
+    no-mesh route. Returns each leg's launches."""
+    from repro_torch.configs import get_config
+
     zcfg = dataclasses.replace(get_config("zamba2-7b"), n_layers=13)
     fcfg = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=2)
     n_attn = zcfg.n_layers // zcfg.shared_attn_every
-    mesh = mesh_group()
-    try:
-        launches = {
-            "mesh qwen2.5-3b train": mesh_train_leg(dev, mesh),
-            "mesh zamba2-7b prefill": mesh_prefill_leg(
-                dev, mesh, "zamba2-7b", zcfg, SEQ,
-                {"ssd_scan": zcfg.n_layers, "flash_attention": n_attn,
-                 "flash_attention_wgmma": n_attn}),
-            "mesh falcon-mamba-7b prefill": mesh_prefill_leg(
-                dev, mesh, "falcon-mamba-7b", fcfg, SSM_TRAIN_SEQ,
-                {"ssm_scan": fcfg.n_layers}),
-            "mesh zamba2-7b decode": mesh_decode_leg(
-                dev, mesh, "zamba2-7b", zcfg,
-                {"flash_decode": n_attn, "flash_decode_split": n_attn,
-                 "flash_decode_combine": n_attn}),
-        }
-        mesh_sequence_shards(dev, mesh)
-        mesh_refusals(dev, mesh)
-    finally:
-        reset_hints(zcfg, TRAIN_4K)
-        dist.destroy_process_group()
-    mesh_records()
+    launches = {
+        "mesh qwen2.5-3b train": mesh_train_leg(dev, mesh),
+        "mesh zamba2-7b prefill": mesh_prefill_leg(
+            dev, mesh, "zamba2-7b", zcfg, SEQ,
+            {"ssd_scan": zcfg.n_layers, "flash_attention": n_attn,
+             "flash_attention_wgmma": n_attn}),
+        "mesh falcon-mamba-7b prefill": mesh_prefill_leg(
+            dev, mesh, "falcon-mamba-7b", fcfg, SSM_TRAIN_SEQ,
+            {"ssm_scan": fcfg.n_layers}),
+        "mesh zamba2-7b decode": mesh_decode_leg(
+            dev, mesh, "zamba2-7b", zcfg,
+            {"flash_decode": n_attn, "flash_decode_split": n_attn,
+             "flash_decode_combine": n_attn}),
+    }
+    mesh_sequence_shards(dev, mesh)
+    mesh_refusals(dev, mesh)
     return launches
+
+
+# -- phase 25: attention on a sequence-sharded q ------------------------------
+
+BF16, F32 = torch.bfloat16, torch.float32
+MODEL_SHARDS = 16                 # the production meshes' ``model`` dim
+#: (name, B, H, K, Sq, Sk, q_offset, hd, dtype, causal, window, softcap): q
+#: rows at q_offset against every key. First the last rank's share of a q
+#: sequence-sharded over ``model`` on 16 x 16 (gemma2-2b's local and global
+#: layers and llava-next-34b, TRAIN_4K and PREFILL_32K: its heaviest rank
+#: under causal masking), then small shares off the block on both routes
+OFFSET_CASES = [
+    ("gemma2-2b-train-local", 16, 8, 4, 256, 4096, 3840, 256, BF16, True,
+     4096, 50.0),
+    ("gemma2-2b-train-global", 16, 8, 4, 256, 4096, 3840, 256, BF16, True,
+     0, 50.0),
+    ("gemma2-2b-prefill-local", 2, 8, 4, 2048, 32768, 30720, 256, BF16,
+     True, 4096, 50.0),
+    ("gemma2-2b-prefill-global", 2, 8, 4, 2048, 32768, 30720, 256, BF16,
+     True, 0, 50.0),
+    ("llava-next-34b-train", 16, 56, 8, 256, 4096, 3840, 128, BF16, True, 0,
+     0.0),
+    ("llava-next-34b-prefill", 2, 56, 8, 2048, 32768, 30720, 128, BF16, True,
+     0, 0.0),
+    ("gemma2-2b-train-local-f32", 1, 8, 4, 256, 4096, 3840, 256, F32, True,
+     4096, 50.0),
+    ("ragged-small", 2, 4, 2, 37, 100, 50, 32, F32, True, 8, 20.0),
+    ("ragged-small-bf16", 1, 4, 2, 77, 300, 101, 64, BF16, True, 0, 0.0),
+    ("ragged-window-softcap-bf16", 2, 8, 2, 200, 1000, 555, 112, BF16, True,
+     300, 30.0),
+    ("bidirectional-window", 1, 4, 2, 50, 300, 130, 128, F32, False, 40,
+     0.0),
+]
+#: the rank shares timed (d)
+OFFSET_TIMED = 6
+#: (a) also holds each case to its own scale: a share at Sk 32768 has
+#: outputs of ~sqrt(e / Sk), far below ATTN_TOL, so the error must also stay
+#: within this share of the plain version's largest |output| (bf16: about
+#: two ulps of it)
+OFFSET_REL_TOL = {F32: 1e-4, BF16: 2e-2}
+#: f32 scores of one plain call above this are computed a batch row and a
+#: kv-head group at a time
+PLAIN_SCORE_BYTES = 4 << 30
+#: the sixteen-rank emulation: (name, H, K, hd, dtype, window, softcap) at
+#: batch 1 and TRAIN_4K's S 4096, shares of 256 rows
+EMULATED = [
+    ("gemma2-2b-global", 8, 4, 256, BF16, 0, 50.0),
+    ("gemma2-2b-local", 8, 4, 256, BF16, 4096, 50.0),
+    ("gemma2-2b-window-1000", 8, 4, 256, BF16, 1000, 50.0),
+    ("llava-next-34b", 56, 8, 128, BF16, 0, 0.0),
+    ("gemma2-2b-global-f32", 8, 4, 256, F32, 0, 50.0),
+]
+EMULATED_S = 4096
+#: a sequence whose shares (250 rows) are not a multiple of either block
+EMULATED_RAGGED = ("llava-next-34b-S4000", 56, 8, 128, BF16, 0, 0.0, 4000)
+#: PREFILL_32K's S at batch 1 for these EMULATED cases: the first share
+#: and the two heaviest (2048 rows each) against the same rows of the whole
+#: sequence's kernel
+EMULATED_LONG = ("gemma2-2b-global", "gemma2-2b-local", "llava-next-34b")
+EMULATED_LONG_S = 32768
+EMULATED_LONG_RANKS = (0, MODEL_SHARDS - 2, MODEL_SHARDS - 1)
+HINTED_LAYERS = 4                 # llava-next-34b's cut for the prefill leg
+
+
+def offset_inputs(i, case, dev):
+    """Seeded N(0, 1) q [B,H,Sq,hd], k and v [B,K,Sk,hd] drawn on the
+    card."""
+    _, B, H, K, Sq, Sk, _, hd, dt, *_ = case
+    g = torch.Generator(dev).manual_seed(2500 + i)
+    return [torch.randn(shape, generator=g, device=dev).to(dt)
+            for shape in ((B, H, Sq, hd), (B, K, Sk, hd), (B, K, Sk, hd))]
+
+
+def offset_ref(q, k, v, **kw):
+    """``attention_ref`` of the whole call, or a batch row and a kv-head
+    group at a time where its f32 scores would pass PLAIN_SCORE_BYTES."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, H, Sq, _ = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    if 4 * B * H * Sq * Sk <= PLAIN_SCORE_BYTES:
+        return attention_ref(q, k, v, **kw)
+    G = H // K
+    out = torch.empty_like(q)
+    for b in range(B):
+        for j in range(K):
+            heads = slice(j * G, (j + 1) * G)
+            out[b:b + 1, heads] = attention_ref(
+                q[b:b + 1, heads], k[b:b + 1, j:j + 1], v[b:b + 1, j:j + 1],
+                **kw)
+    return out
+
+
+def offset_kernel_checks(dev) -> dict:
+    """(a) every OFFSET_CASES case on its route against the plain version
+    at the same offset, within ATTN_TOL and within OFFSET_REL_TOL of the
+    plain version's largest |output|. Returns the errors by case."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    errs = {}
+    for i, c in enumerate(OFFSET_CASES):
+        name, *_, Sk, q_offset, _, dt, causal, window, cap = c
+        q, k, v = offset_inputs(i, c, dev)
+        kw = dict(causal=causal, window=window, softcap=cap,
+                  q_offset=q_offset)
+        reset_counts()
+        ker = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        routes = {r: counts()[f"flash_attention_{r}"] for r in ROUTES}
+        ref = offset_ref(q, k, v, **kw)
+        errs[name] = max_abs_err([ref], [ker])
+        scale = ref.float().abs().max().item()
+        tol = min(ATTN_TOL[dt], OFFSET_REL_TOL[dt] * scale)
+        emit({"phase": "q_offset_kernel", "card": smi_line(), "case": name,
+              "q": list(q.shape), "k": list(k.shape), **kw,
+              "dtype": str(dt), "route_launches": routes,
+              "max_abs_err": errs[name], "max_abs_out": scale,
+              "err_over_max_abs_out": errs[name] / scale,
+              "tolerance": tol, "attn_tol": ATTN_TOL[dt],
+              "rel_tol": OFFSET_REL_TOL[dt],
+              "plain_by_row_and_group": 4 * q.shape[0] * q.shape[1]
+              * q.shape[2] * Sk > PLAIN_SCORE_BYTES})
+        check(ker.shape == q.shape and bool(torch.isfinite(ker).all()),
+              f"flash_attention at an offset gave a bad result in {name}")
+        check(errs[name] <= tol, f"flash_attention at an offset differs "
+                                 f"from its plain version in {name}: "
+                                 f"{errs[name]} > {tol}")
+        want = {r: int(r == fa.route(dt)) for r in ROUTES}
+        check(routes == want, f"{name} took the routes {routes}, not {want}")
+        del q, k, v, ker, ref
+    free_card()
+    return errs
+
+
+def emulate_ranks(dev) -> list:
+    """(b) MODEL_SHARDS ranks on one card: each share of q at its offset,
+    concatenated, against the same rows of the same route's kernel on the
+    whole sequence; every share at S 4096, the first and the heaviest at
+    EMULATED_LONG_S; bit-equal where a share is a multiple of the route's
+    block, within ATTN_TOL where it is not."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    rows = []
+    every = tuple(range(MODEL_SHARDS))
+    cases = ([(*c, EMULATED_S, every) for c in EMULATED]
+             + [(*EMULATED_RAGGED, every)]
+             + [(f"{c[0]}-S{EMULATED_LONG_S}", *c[1:], EMULATED_LONG_S,
+                 EMULATED_LONG_RANKS) for c in EMULATED
+                if c[0] in EMULATED_LONG])
+    for i, (name, H, K, hd, dt, window, cap, S, ranks) in enumerate(cases):
+        g = torch.Generator(dev).manual_seed(2600 + i)
+        q, k, v = (torch.randn((1, h, S, hd), generator=g,
+                               device=dev).to(dt) for h in (H, K, K))
+        kw = dict(causal=True, window=window, softcap=cap)
+        whole = fa.flash_attention(q, k, v, **kw)
+        share = S // MODEL_SHARDS
+        rows_of = [slice(r * share, (r + 1) * share) for r in ranks]
+        parts = [fa.flash_attention(q[:, :, s].contiguous(), k, v,
+                                    q_offset=s.start, **kw)
+                 for s in rows_of]
+        got = torch.cat(parts, dim=2)
+        whole = torch.cat([whole[:, :, s] for s in rows_of], dim=2)
+        aligned = share % fa.BLOCK_Q[fa.route(dt)] == 0
+        row = {"case": name, "S": S, "shares": MODEL_SHARDS,
+               "ranks": list(ranks) if ranks != every else "all",
+               "rows_a_share": share, "route": fa.route(dt),
+               "share_a_multiple_of_the_block": aligned,
+               "bit_equal": bit_equal(got, whole),
+               "max_abs_err": max_abs_err([whole], [got])}
+        rows.append(row)
+        check(row["bit_equal"] if aligned else
+              row["max_abs_err"] <= ATTN_TOL[dt],
+              f"{name}: the {MODEL_SHARDS} shares differ from the whole "
+              f"sequence's kernel: {row}")
+        del q, k, v, whole, parts, got
+    emit({"phase": "q_offset_ranks", "card": smi_line(), "rows": rows})
+    free_card()
+    return rows
+
+
+def loss_and_backward(model, batch):
+    loss = model.loss(batch)
+    loss.backward()
+    return loss.detach()
+
+
+def hinted_train_leg(dev, mesh, arch: str, cfg) -> dict:
+    """The full ``arch`` at 1 x TRAIN_SEQ: the loss and every gradient leaf
+    (remat on) of the no-mesh route, then of the model placed on the 1 x 1
+    mesh with q sequence-sharded over ``model`` by hand: equal bit for bit,
+    each route launching ``flash_attention`` twice a layer on the wgmma
+    route."""
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.launch.train import place_on_mesh
+    from repro_torch.models import layers
+
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_wgmma": 2 * cfg.n_layers}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             SyntheticCorpus(cfg, TRAIN_SEQ, 1, seed=0).batch(0).items()}
+    free_card()
+    model = training_model(cfg, dev, seed=0)
+    reset_counts()
+    plain_loss, plain_s = timed(lambda: loss_and_backward(model, batch))
+    plain_counts = nonzero_counts()
+    plain_grads = {k: p.grad for k, p in model.named_parameters()}
+    del model
+    free_card()
+
+    model = training_model(cfg, dev, seed=0)
+    opt, place_batch = place_on_mesh(mesh, cfg, model)
+    del opt                       # the step's moments are not needed here
+    layers.set_attention_q_sharding("model")
+    mb = place_batch(batch)
+    reset_counts()
+    loss, mesh_s = timed(lambda: loss_and_backward(model, mb))
+    mesh_counts = nonzero_counts()
+    hint = layers._ATTN_Q_SHARDING
+    layers.set_attention_q_sharding(None)
+    mesh_loss = local(loss)
+    differing = [k for k, p in model.named_parameters()
+                 if not torch.equal(local(p.grad), plain_grads[k])]
+    equal = not differing and torch.equal(mesh_loss, plain_loss)
+    emit({"phase": "q_offset_train", "card": smi_line(), "arch": arch,
+          "mesh": "1x1", "q_hint": hint, "tokens": [1, TRAIN_SEQ],
+          "remat": True, "loss_plain": float(plain_loss),
+          "loss_mesh": float(mesh_loss), "bit_equal": equal,
+          "n_leaves": len(plain_grads), "differing_leaves": differing[:20],
+          "launches_plain": plain_counts, "launches_mesh": mesh_counts,
+          "s_loss_and_backward_plain": plain_s,
+          "s_loss_and_backward_mesh": mesh_s})
+    check(plain_counts == mesh_counts == want,
+          f"{arch}: launched {plain_counts} plain, {mesh_counts} on the "
+          f"hinted mesh, not {want}")
+    check(equal, f"{arch}: the hinted mesh route's loss or gradients "
+                 f"({differing[:5]}) differ from the no-mesh route's")
+    del model, plain_grads, loss, mb, batch
+    free_card()
+    return {"loss and backward": mesh_counts}
+
+
+def offset_timings(dev, errs: dict) -> list:
+    """(d) the last rank's share of each OFFSET_TIMED case: the kernel's
+    ms a launch, the plain version's, the library call's where there is
+    one, and the bound from the visible pairs at its offset (and the
+    first rank's visible pairs beside them)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    rows = []
+    for i, c in enumerate(OFFSET_CASES[:OFFSET_TIMED]):
+        name, B, H, K, Sq, Sk, q_offset, hd, dt, causal, window, cap = c
+        q, k, v = offset_inputs(i, c, dev)
+        kw = dict(causal=causal, window=window, softcap=cap,
+                  q_offset=q_offset)
+        ker_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        plain_ms = time_ms(lambda: offset_ref(q, k, v, **kw))
+        lib = library_attention(q, k, v, causal, window, cap, q_offset)
+        lib_ms = lib_err = None
+        if lib is not None:
+            lib_ms = time_ms(lib)
+            lib_err = max_abs_err([lib()], [fa.flash_attention(q, k, v,
+                                                               **kw)])
+            check(lib_err <= ATTN_TOL[dt], f"{name}: SDPA differs by "
+                                           f"{lib_err}")
+        bound_ms, bound_by, flops, nbytes = attn_bound(
+            B, H, K, Sq, hd, dt, causal, window, Sk, q_offset)
+        last = visible_pairs(Sq, causal, window, Sk, q_offset)
+        first = visible_pairs(Sq, causal, window, Sk, 0)
+        row = {"case": name, "route": fa.route(dt), "q": [B, H, Sq, hd],
+               "k": [B, K, Sk, hd], "q_offset": q_offset,
+               "rank": q_offset // Sq, "ms": ker_ms, "us": 1e3 * ker_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": "none (softcap)" if lib is None else
+               "SDPA, causal_lower_right" if causal and window == 0
+               and q_offset + Sq == Sk else "SDPA, boolean mask",
+               "library_max_abs_err": lib_err,
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+               "bytes": nbytes, "tflops": flops / ker_ms / 1e9,
+               "share_of_bound": bound_ms / ker_ms,
+               "visible_pairs_last_over_first_rank": last / first,
+               "max_abs_err": errs[name]}
+        rows.append(row)
+        emit({"phase": "q_offset_timing", "card": smi_line(), **row})
+        del q, k, v, lib
+    free_card()
+    return rows
+
+
+def mesh_sequence_sharded_q(dev, mesh) -> None:
+    """(e) ``attention_op`` of a q DTensor placed on its sequence over the
+    mesh's ``model`` dim (the call phase 24 refused before the kernels took
+    an offset): equal bit for bit to the kernel on the plain tensors, one
+    wgmma launch each, and to the plain version within ATTN_TOL."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels.flash_attention.ops import attention_op
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    g = torch.Generator(dev).manual_seed(2700)
+    q, k, v = (torch.randn((1, h, 256, 128), generator=g,
+                           device=dev).bfloat16() for h in (16, 2, 2))
+    kw = dict(causal=True, window=100, softcap=30.0)
+    seq_q = DTensor.from_local(q, mesh, [Replicate(), Shard(2)])
+    kd, vd = (DTensor.from_local(t, mesh, [Replicate(), Replicate()])
+              for t in (k, v))
+    reset_counts()
+    want = attention_op(q, k, v, **kw)
+    plain_counts = nonzero_counts()
+    reset_counts()
+    got = local(attention_op(seq_q, kd, vd, **kw))
+    mesh_counts = nonzero_counts()
+    err = max_abs_err([attention_ref(q, k, v, **kw)], [got])
+    one = {"flash_attention": 1, "flash_attention_wgmma": 1}
+    emit({"phase": "q_offset_mesh_op", "card": smi_line(),
+          "q": list(q.shape), "placements": str(seq_q.placements), **kw,
+          "bit_equal_plain_route": bit_equal(got, want),
+          "max_abs_err_plain_version": err, "tolerance": ATTN_TOL[BF16],
+          "launches_plain": plain_counts, "launches_mesh": mesh_counts})
+    check(plain_counts == mesh_counts == one,
+          f"sequence-sharded q: launched {plain_counts}, {mesh_counts}")
+    check(bit_equal(got, want), "sequence-sharded q: the mesh route's "
+                                "output differs from the plain route's")
+    check(err <= ATTN_TOL[BF16], f"sequence-sharded q: {err} from the "
+                                 f"plain version")
+
+
+def q_offset_phase(dev, mesh) -> tuple[dict, dict]:
+    """Phase 25: attention on a sequence-sharded q, each share of q rows
+    at its offset against every key. Returns the model legs' launches and,
+    for the kernels line, the timed shares and the emulation's rows."""
+    from repro_torch.configs import get_config
+
+    errs = offset_kernel_checks(dev)
+    emulation = emulate_ranks(dev)
+    mesh_sequence_sharded_q(dev, mesh)
+    gcfg = get_config("gemma2-2b")
+    lcfg = dataclasses.replace(get_config("llava-next-34b"),
+                               n_layers=HINTED_LAYERS)
+    wgmma = {"flash_attention": lcfg.n_layers,
+             "flash_attention_wgmma": lcfg.n_layers}
+    launches = {
+        "hinted gemma2-2b train": hinted_train_leg(dev, mesh, "gemma2-2b",
+                                                   gcfg),
+        "hinted llava-next-34b-4 prefill": mesh_prefill_leg(
+            dev, mesh, "llava-next-34b", lcfg, SEQ, wgmma, q_hint="model"),
+    }
+    emit({"phase": "q_offset_model", "card": smi_line(), "mesh": "1x1",
+          "q_hint": "model", "launches": launches})
+    rows = offset_timings(dev, errs)
+    return launches, {"q_offset_cases": rows,
+                      "q_offset_emulation": emulation}
 
 
 def main() -> None:
@@ -3396,11 +3801,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 1. the card ---------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = smi_line()
     print(smi, flush=True)
     emit({"phase": "card", "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3690,7 +4091,7 @@ def main() -> None:
         ref_ms = time_ms(lambda: attention_ref(q, k, v, **kw))
         lib = library_attention(q, k, v, causal, window, cap)
         lib_ms = time_ms(lib) if lib is not None else None
-        bound_ms, bound_by, flops, nbytes = attn_bound(c)
+        bound_ms, bound_by, flops, nbytes = attn_bound(*c[1:9])
         row = {"case": name, "route": fa.route(c[6]), "ms": ker_ms,
                "plain_ms": ref_ms, "library_ms": lib_ms,
                "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
@@ -3763,8 +4164,13 @@ def main() -> None:
     # -- 23. the dry run on the card -----------------------------------------
     dryrun_phase(dev)
 
-    # -- 24. the production mesh's route on one card ----------------------------
-    launches_by_path.update(mesh_phase(dev))
+    # -- 24. the production mesh's route on one card; 25. attention on a
+    # sequence-sharded q ------------------------------------------------------
+    with mesh_session() as mesh:
+        launches_by_path.update(mesh_phase(dev, mesh))
+        offset_launches, offset_rows = q_offset_phase(dev, mesh)
+        launches_by_path.update(offset_launches)
+    mesh_records()
 
     def fleet_counts_by_path(name):
         """A fleet kernel's launches on each fleet path but the main one."""
@@ -3849,6 +4255,7 @@ def main() -> None:
                                      "library_ms", "bound_ms", "bound_by",
                                      "share_of_bound")}
                   for r in attn_rows],
+        **offset_rows,
         **train_fields("flash_attention"),
     }, {**new_entry("ssd_scan",
                     "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",

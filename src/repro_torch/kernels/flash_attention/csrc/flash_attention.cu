@@ -11,11 +11,16 @@
 //
 //   s   = (q . k) * hd^-0.5, then tanh(s / softcap) * softcap if softcap > 0;
 //   s   = NEG_INF (-1e30) where the key is masked: k_pos > q_pos (causal),
-//         q_pos - k_pos >= window (window > 0), or k_pos >= S (ragged edge);
+//         q_pos - k_pos >= window (window > 0), or k_pos >= Sk (ragged
+//         edge);
 //   out = softmax(s) v, with f32 accumulation.
 //
-// q is [B,H,S,hd], k and v are [B,K,S,hd], all contiguous f32; query head h
-// reads kv head h / (H / K); hd in {32, 64, 112, 128, 256}.
+// q is [B,H,Sq,hd], k and v are [B,K,Sk,hd], all contiguous f32; query head
+// h reads kv head h / (H / K); hd in {32, 64, 112, 128, 256}. Query row i
+// stands at position q_pos = q_offset + i (0 <= q_offset, q_offset + Sq <=
+// Sk), key row j at k_pos = j: a rank that holds the rows [s0, s0 + Sq) of
+// a sequence-sharded q passes q_offset = s0 and every key. Without an
+// offset Sq = Sk = S.
 //
 // Design: one block of 256 threads per (b, h, tile of 64 query rows). The
 // TPU kernel's sequential k grid axis, whose running max m, normaliser l and
@@ -31,9 +36,9 @@
 // leaves its m, l and acc as they were. The final division uses
 // max(l, 1e-30), as the reference does. At hd=256 the tiles take 213,760
 // bytes of dynamic shared memory (over 48 KB, so the launch raises the
-// limit with cudaFuncAttributeMaxDynamicSharedMemorySize). The ragged S
-// edge is masked in the kernel: key rows past S load as zero and are
-// masked, query rows past S are not stored.
+// limit with cudaFuncAttributeMaxDynamicSharedMemorySize). The ragged
+// edges are masked in the kernel: key rows past Sk load as zero and are
+// masked, query rows past Sq are not stored.
 //
 // Arithmetic is f32 on the CUDA cores: the dot products are explicit fmaf,
 // expf and tanhf are the accurate libdevice versions. The library is built
@@ -68,17 +73,17 @@ constexpr size_t smem_bytes() {
           size_t(kBQ) * (kBK + 1));
 }
 
-__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
-                                        int window) {
-  return kpos < S && (!causal || qpos >= kpos) &&
+__device__ __forceinline__ bool visible(int qpos, int kpos, int Sk,
+                                        int causal, int window) {
+  return kpos < Sk && (!causal || qpos >= kpos) &&
          (window <= 0 || qpos - kpos < window);
 }
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int H, int group, int S, int causal, int window,
-    float scale, float softcap) {
+    T* __restrict__ o, int H, int group, int Sq, int Sk, int q_offset,
+    int causal, int window, float scale, float softcap) {
   constexpr int QS = HD + 1;        // padded row stride of the q and k tiles
   constexpr int PS = kBK + 1;       // padded row stride of the p tile
   constexpr int kDims = HD / kTX;   // output columns per thread
@@ -90,18 +95,19 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
   const int tid = threadIdx.x;
   const int tx = tid % kTX, ty = tid / kTX;
-  const int n_qt = (S + kBQ - 1) / kBQ;
-  const int q0 = (n_qt - 1 - blockIdx.x) * kBQ;   // longest rows first
+  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  // the block's first local row, longest rows first
+  const int q0 = (n_qt - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
-  const long long q_base = ((long long)b * H + h) * S * HD;
+  const long long q_base = ((long long)b * H + h) * Sq * HD;
   const long long kv_base =
-      ((long long)b * (H / group) + h / group) * S * HD;
+      ((long long)b * (H / group) + h / group) * Sk * HD;
 
   for (int i = tid; i < kBQ * HD; i += kThreads) {
     const int r = i / HD, c = i % HD;
-    const int qpos = q0 + r;
+    const int row = q0 + r;
     sQ[r * QS + c] =
-        qpos < S ? q[q_base + (long long)qpos * HD + c] : 0.0f;
+        row < Sq ? q[q_base + (long long)row * HD + c] : 0.0f;
   }
 
   float m[kRows], l[kRows], acc[kRows][kDims];
@@ -114,9 +120,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   }
 
   // key tiles with at least one visible entry for some row of this block
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  const int k_end = causal ? q_offset + q_last + 1 : Sk;
+  const int k_begin = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
   const int kt_end = (k_end + kBK - 1) / kBK;
 
   for (int kt = k_begin / kBK; kt < kt_end; ++kt) {
@@ -126,8 +132,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       const int r = i / HD, c = i % HD;
       const int kpos = k0 + r;
       const long long off = kv_base + (long long)kpos * HD + c;
-      sK[r * QS + c] = kpos < S ? k[off] : 0.0f;
-      sV[r * HD + c] = kpos < S ? v[off] : 0.0f;
+      sK[r * QS + c] = kpos < Sk ? k[off] : 0.0f;
+      sV[r * HD + c] = kpos < Sk ? v[off] : 0.0f;
     }
     __syncthreads();
 
@@ -152,13 +158,13 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int r = ty + kTY * i;
-      const int qpos = q0 + r;
+      const int qpos = q_offset + q0 + r;
       float row_max = kNegInf;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         float x = s[i][j] * scale;
         if (softcap > 0.0f) x = tanhf(x / softcap) * softcap;
-        s[i][j] = visible(qpos, k0 + tx + kTX * j, S, causal, window)
+        s[i][j] = visible(qpos, k0 + tx + kTX * j, Sk, causal, window)
                       ? x : kNegInf;
         row_max = fmaxf(row_max, s[i][j]);
       }
@@ -171,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         const int kpos = k0 + tx + kTX * j;
-        const float p = visible(qpos, kpos, S, causal, window)
+        const float p = visible(qpos, kpos, Sk, causal, window)
                             ? expf(s[i][j] - m_new) : 0.0f;
         sP[r * PS + tx + kTX * j] = p;
         row_sum += p;
@@ -203,10 +209,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    const int qpos = q0 + ty + kTY * i;
-    if (qpos >= S) continue;
+    const int r = q0 + ty + kTY * i;
+    if (r >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* row = o + q_base + (long long)qpos * HD;
+    T* row = o + q_base + (long long)r * HD;
 #pragma unroll
     for (int d = 0; d < kDims; ++d)
       row[tx + kTX * d] = acc[i][d] / denom;
@@ -215,8 +221,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
 template <typename T, int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int K, int S, int causal, int window, float scale, float softcap,
-           cudaStream_t stream) {
+           int K, int Sq, int Sk, int q_offset, int causal, int window,
+           float scale, float softcap, cudaStream_t stream) {
   auto kernel = flash_attention_kernel<T, HD>;
   constexpr size_t smem = smem_bytes<HD>();
   if (smem > 48 * 1024) {
@@ -224,34 +230,34 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, H / K, S, causal,
-      window, scale, softcap);
+      static_cast<const T*>(v), static_cast<T*>(o), H, H / K, Sq, Sk,
+      q_offset, causal, window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-              int B, int H, int K, int S, int causal, int window, float scale,
-              float softcap, cudaStream_t stream) {
+              int B, int H, int K, int Sq, int Sk, int q_offset, int causal,
+              int window, float scale, float softcap, cudaStream_t stream) {
   switch (hd) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, K, S, causal, window, scale,
-                           softcap, stream);
+      return launch<T, 32>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
+                           window, scale, softcap, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, K, S, causal, window, scale,
-                           softcap, stream);
+      return launch<T, 64>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
+                           window, scale, softcap, stream);
     case 112:
-      return launch<T, 112>(q, k, v, o, B, H, K, S, causal, window, scale,
-                            softcap, stream);
+      return launch<T, 112>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
+                            window, scale, softcap, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, K, S, causal, window, scale,
-                            softcap, stream);
+      return launch<T, 128>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
+                            window, scale, softcap, stream);
     case 256:
-      return launch<T, 256>(q, k, v, o, B, H, K, S, causal, window, scale,
-                            softcap, stream);
+      return launch<T, 256>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
+                            window, scale, softcap, stream);
     default:
       return -1;
   }
@@ -261,19 +267,22 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// Launches one f32 attention over q [B,H,S,hd], k and v [B,K,S,hd] into o
-// [B,H,S,hd], on `stream`. Returns the cudaGetLastError() code of the
+// Launches one f32 attention of q [B,H,Sq,hd], its rows at positions
+// q_offset .. q_offset + Sq - 1, over k and v [B,K,Sk,hd] into o
+// [B,H,Sq,hd], on `stream`. Returns the cudaGetLastError() code of the
 // launch (0 on success), -1 for an hd this file was not instantiated for,
 // or -2 if (grid_x, grid_y, grid_z), the wrapper's grid, is not the one this
 // file's tiling needs.
 int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int H, int K, int S, int hd,
-                           int causal, int window, float scale, float softcap,
-                           int grid_x, int grid_y, int grid_z, void* stream) {
-  if (grid_x != (S + kBQ - 1) / kBQ || grid_y != H || grid_z != B)
+                           void* o, int B, int H, int K, int Sq, int Sk,
+                           int q_offset, int hd, int causal, int window,
+                           float scale, float softcap, int grid_x,
+                           int grid_y, int grid_z, void* stream) {
+  if (grid_x != (Sq + kBQ - 1) / kBQ || grid_y != H || grid_z != B)
     return -2;
-  return launch_hd<float>(hd, q, k, v, o, B, H, K, S, causal, window, scale,
-                          softcap, static_cast<cudaStream_t>(stream));
+  return launch_hd<float>(hd, q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
+                          window, scale, softcap,
+                          static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int code) {

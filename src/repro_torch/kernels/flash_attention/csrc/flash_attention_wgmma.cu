@@ -8,11 +8,15 @@
 //
 //   s   = (q . k) * hd^-0.5, then tanh(s / softcap) * softcap if softcap > 0;
 //   s   is masked where k_pos > q_pos (causal), q_pos - k_pos >= window
-//         (window > 0) or k_pos >= S (ragged edge): p = 0 exactly there;
+//         (window > 0) or k_pos >= Sk (ragged edge): p = 0 exactly there;
 //   out = softmax(s) v, f32 accumulation, written in bf16.
 //
-// q is [B,H,S,hd], k and v are [B,K,S,hd], all contiguous bf16; query head h
-// reads kv head h / (H / K); hd in {32, 64, 112, 128, 256}.
+// q is [B,H,Sq,hd], k and v are [B,K,Sk,hd], all contiguous bf16; query
+// head h reads kv head h / (H / K); hd in {32, 64, 112, 128, 256}. Query row
+// i stands at position q_pos = q_offset + i (0 <= q_offset, q_offset + Sq <=
+// Sk), key row j at k_pos = j: a rank that holds the rows [s0, s0 + Sq) of
+// a sequence-sharded q passes q_offset = s0 and every key. Without an
+// offset Sq = Sk = S.
 //
 // Bound on the H100: at the long shapes (S 4096-8192) the work is
 // 4 * hd * (visible score entries) * B * H FLOPs, 69-278 us at the 989
@@ -30,16 +34,16 @@
 //   thread at hd 256) beside its score tile, so setmaxnreg moves them: the
 //   producer keeps 24, the consumers get 240. One producer thread issues
 //   every copy and does nothing else.
-// - Copies are TMA (cp.async.bulk.tensor) over rank-3 tensor maps (hd, S,
-//   B * heads) with boxes 64 elements wide and a 128-byte swizzle (a 64-byte
-//   one at hd 32, whose rows are 64 bytes). q is loaded once; k and v go
-//   through a ring of STAGES stages with a "full" mbarrier for each of k
-//   and v (the score product starts before v lands) and an "empty" one for
-//   each, which all 256 consumer threads arrive on (k is released as soon as
-//   its scores are in, v after its P V). S is a dimension of the map, so a
-//   tile that runs past S reads zeros, never the next head's rows; hd 112 is
-//   read as two boxes of 64 columns whose last 16 are zero, computed as 128
-//   and stored as 112.
+// - Copies are TMA (cp.async.bulk.tensor) over rank-3 tensor maps (hd, Sq
+//   or Sk, B * heads) with boxes 64 elements wide and a 128-byte swizzle
+//   (a 64-byte one at hd 32, whose rows are 64 bytes). q is loaded once; k
+//   and v go through a ring of STAGES stages with a "full" mbarrier for
+//   each of k and v (the score product starts before v lands) and an
+//   "empty" one for each, which all 256 consumer threads arrive on (k is
+//   released as soon as its scores are in, v after its P V). Sq and Sk are
+//   dimensions of the maps, so a tile that runs past them reads zeros,
+//   never the next head's rows; hd 112 is read as two boxes of 64 columns
+//   whose last 16 are zero, computed as 128 and stored as 112.
 // - S = Q K^T is wgmma m64nBKk16 with both operands in shared memory (the
 //   k tile [BK, hd] is K-major as it lands). The softmax runs on the
 //   accumulator fragment in registers: a row lives in the 4 lanes of a quad,
@@ -69,7 +73,8 @@
 // - Tiles are BK = 128 keys at hd <= 128 and 64 at hd 256: q 64 KB + two
 //   stages of k and v (32 KB each) = 192 KB of dynamic shared memory there.
 // - The epilogue divides by max(l, 1e-30), as the reference does, and
-//   stores rows < S and columns < hd from registers.
+//   stores rows < Sq and columns < hd from registers. The masks and the
+//   tile range read a row's position, q_offset + its row.
 //
 // Measured by chip_smoke.py (NVIDIA H100 80GB HBM3, 700 W): 0.22 ms at
 // qwen2.5-3b's S 4096 (31% of the bound, 309 TFLOP/s; SDPA 0.14 ms), 0.40
@@ -351,9 +356,9 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
 
 
 // Whether key kpos is visible to query qpos (bitwise, so no branches).
-__device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
-                                        int window) {
-  return (kpos < S) & (!causal | (qpos >= kpos)) &
+__device__ __forceinline__ bool visible(int qpos, int kpos, int Sk,
+                                        int causal, int window) {
+  return (kpos < Sk) & (!causal | (qpos >= kpos)) &
          ((window <= 0) | (qpos - kpos < window));
 }
 
@@ -373,11 +378,11 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int S, int causal,
 // m = +inf for the exponent. The softmax runs while the previous tile's
 // P V is in flight, so it writes only the score registers, and has no
 // branches inside its loops; pack_p turns p into wgmma's A fragment once
-// that product is done.
+// that product is done. p0 and p1 are the positions of the thread's rows.
 template <int BK>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[BK / 2], float& m0, float& m1, float& l0, float& l1,
-    float& a0, float& a1, int r0, int r1, int k0, int col, bool all, int S,
+    float& a0, float& a1, int p0, int p1, int k0, int col, bool all, int Sk,
     int causal, int window, float scale, float softcap) {
   float sl = scale * kLog2e;             // log2(e) over the scores' unit
   if (softcap > 0.0f) {
@@ -392,8 +397,8 @@ __device__ __forceinline__ void softmax_tile(
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const bool top = (i % 4) < 2;
-      const bool ok = visible(top ? r0 : r1, k0 + 8 * (i / 4) + col + (i % 2),
-                              S, causal, window);
+      const bool ok = visible(top ? p0 : p1, k0 + 8 * (i / 4) + col + (i % 2),
+                              Sk, causal, window);
       s[i] = ok ? s[i] : kNegInf;
     }
   }
@@ -454,8 +459,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map,
     const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ o,
-    int H, int group, int S, int causal, int window, float scale,
-    float softcap) {
+    int H, int group, int Sq, int Sk, int q_offset, int causal, int window,
+    float scale, float softcap) {
   using T = Tiles<HD>;
   constexpr int BK = T::BK, RB = T::RB, NC = T::NC, HDP = T::HDP;
   constexpr int ST = T::STAGES;
@@ -473,14 +478,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
   uint64_t* v_empty = k_empty + ST;
 
   const int n_qb = gridDim.x;
-  const int q0 = (n_qb - 1 - blockIdx.x) * kBQ;   // longest rows first
+  // the block's first local row, longest rows first
+  const int q0 = (n_qb - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y, b = blockIdx.z;
   const int kv_row = b * (H / group) + h / group;
 
   // key tiles with at least one visible entry for some row of this block
-  const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int q_last = min(q0 + kBQ, Sq) - 1;
+  const int k_end = causal ? q_offset + q_last + 1 : Sk;
+  const int k_begin = window > 0 ? max(0, q_offset + q0 - window + 1) : 0;
   const int kt0 = k_begin / BK;
   const int n_tiles = (k_end + BK - 1) / BK - kt0;
 
@@ -532,6 +538,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
   const int r_lo = q0 + 64 * wg;                        // the warpgroup's rows
   const int r0 = r_lo + 16 * ((threadIdx.x / 32) % 4) + lane / 4;
   const int r1 = r0 + 8;                                // this thread's rows
+  const int pos_lo = q_offset + r_lo;                   // and their positions
+  const int pos0 = q_offset + r0, pos1 = q_offset + r1;
   const int col = 2 * (lane % 4);                       // first column in n8
 
   float acc[HDP / 2];
@@ -572,8 +580,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
   };
   // whether every entry of the tile at k0 is visible to the warpgroup's rows
   auto all_visible = [&](int k0) {
-    return k0 + BK <= S && (!causal || k0 + BK - 1 <= r_lo) &&
-           (window <= 0 || r_lo + 63 - k0 < window);
+    return k0 + BK <= Sk && (!causal || k0 + BK - 1 <= pos_lo) &&
+           (window <= 0 || pos_lo + 63 - k0 < window);
   };
 
   mbar_wait(q_full, 0);
@@ -585,8 +593,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
   wgmma_wait<0>();
   fence_regs(s);
   mbar_arrive(k_empty);
-  softmax_tile<BK>(s, m0, m1, l0, l1, a0, a1, r0, r1, kt0 * BK, col,
-                   all_visible(kt0 * BK), S, causal, window, scale, softcap);
+  softmax_tile<BK>(s, m0, m1, l0, l1, a0, a1, pos0, pos1, kt0 * BK, col,
+                   all_visible(kt0 * BK), Sk, causal, window, scale, softcap);
   pack_p<BK>(s, p, p_lo);
 
   // tile it's scores on the tensor cores while tile it - 1's P V runs
@@ -609,8 +617,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
     wgmma_wait<1>();            // the scores are in; P V may still run
     fence_regs(s);
     mbar_arrive(k_empty + st);
-    softmax_tile<BK>(s, m0, m1, l0, l1, a0, a1, r0, r1, k0, col,
-                     all_visible(k0), S, causal, window, scale, softcap);
+    softmax_tile<BK>(s, m0, m1, l0, l1, a0, a1, pos0, pos1, k0, col,
+                     all_visible(k0), Sk, causal, window, scale, softcap);
     wgmma_wait<0>();
     fence_regs(acc);
     fence_regs(p);
@@ -634,20 +642,20 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
     mbar_arrive(v_empty + last);
   }
 
-  // ---- epilogue: O / l in bf16, rows < S and columns < hd ----------------
+  // ---- epilogue: O / l in bf16, rows < Sq and columns < hd ---------------
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* out = o + (static_cast<long long>(b) * H + h) * S * HD;
+  __nv_bfloat16* out = o + (static_cast<long long>(b) * H + h) * Sq * HD;
 #pragma unroll
   for (int i = 0; i < HDP / 2; i += 2) {
     const bool top = (i % 4) < 2;
     const int row = top ? r0 : r1;
     const int c = 8 * (i / 4) + col;
-    if (row < S && c < HD) {
+    if (row < Sq && c < HD) {
       const float d = top ? d0 : d1;
       *reinterpret_cast<__nv_bfloat162*>(
           out + static_cast<long long>(row) * HD + c) =
@@ -712,8 +720,8 @@ int make_map(CUtensorMap* map, const void* ptr, int S, int rows,
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int K, int S, int causal, int window, float scale, float softcap,
-           cudaStream_t stream) {
+           int K, int Sq, int Sk, int q_offset, int causal, int window,
+           float scale, float softcap, cudaStream_t stream) {
   using T = Tiles<HD>;
   static_assert(T::SMEM <= 232448, "tiles exceed the shared memory");
   auto kernel = flash_attention_wgmma_kernel<HD>;
@@ -730,14 +738,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
     if (device < 64) attr_set[device] = true;
   }
   CUtensorMap q_map, k_map, v_map;
-  int rc = make_map<HD>(&q_map, q, S, B * H, kBQ);
-  if (rc == 0) rc = make_map<HD>(&k_map, k, S, B * K, T::BK);
-  if (rc == 0) rc = make_map<HD>(&v_map, v, S, B * K, T::BK);
+  int rc = make_map<HD>(&q_map, q, Sq, B * H, kBQ);
+  if (rc == 0) rc = make_map<HD>(&k_map, k, Sk, B * K, T::BK);
+  if (rc == 0) rc = make_map<HD>(&v_map, v, Sk, B * K, T::BK);
   if (rc != 0) return rc;
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
+  const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, T::SMEM, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), H, H / K, S,
-      causal, window, scale, softcap);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), H, H / K, Sq, Sk,
+      q_offset, causal, window, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -745,35 +753,36 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 extern "C" {
 
-// Launches one bf16 attention over q [B,H,S,hd], k and v [B,K,S,hd] into o
-// [B,H,S,hd], on `stream`. Returns the cudaGetLastError() code of the
+// Launches one bf16 attention of q [B,H,Sq,hd], its rows at positions
+// q_offset .. q_offset + Sq - 1, over k and v [B,K,Sk,hd] into o
+// [B,H,Sq,hd], on `stream`. Returns the cudaGetLastError() code of the
 // launch (0 on success), -1 for an hd this file was not instantiated for,
 // -2 if (grid_x, grid_y, grid_z), the wrapper's grid, is not the one this
 // file's tiling needs, or -3 if the driver refused a TMA tensor map.
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
-                                 void* o, int B, int H, int K, int S, int hd,
-                                 int causal, int window, float scale,
-                                 float softcap, int grid_x, int grid_y,
-                                 int grid_z, void* stream) {
-  if (grid_x != (S + kBQ - 1) / kBQ || grid_y != H || grid_z != B)
+                                 void* o, int B, int H, int K, int Sq, int Sk,
+                                 int q_offset, int hd, int causal, int window,
+                                 float scale, float softcap, int grid_x,
+                                 int grid_y, int grid_z, void* stream) {
+  if (grid_x != (Sq + kBQ - 1) / kBQ || grid_y != H || grid_z != B)
     return -2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 32:
-      return launch<32>(q, k, v, o, B, H, K, S, causal, window, scale,
-                        softcap, st);
+      return launch<32>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal, window,
+                        scale, softcap, st);
     case 64:
-      return launch<64>(q, k, v, o, B, H, K, S, causal, window, scale,
-                        softcap, st);
+      return launch<64>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal, window,
+                        scale, softcap, st);
     case 112:
-      return launch<112>(q, k, v, o, B, H, K, S, causal, window, scale,
-                         softcap, st);
+      return launch<112>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
+                         window, scale, softcap, st);
     case 128:
-      return launch<128>(q, k, v, o, B, H, K, S, causal, window, scale,
-                         softcap, st);
+      return launch<128>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
+                         window, scale, softcap, st);
     case 256:
-      return launch<256>(q, k, v, o, B, H, K, S, causal, window, scale,
-                         softcap, st);
+      return launch<256>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
+                         window, scale, softcap, st);
     default:
       return -1;
   }

@@ -4,7 +4,9 @@ Replaces the TPU kernel
 ``repro/kernels/flash_attention/flash_attention.py::flash_attention``.
 One launch computes causal or bidirectional GQA attention with an optional
 sliding window and tanh soft-cap for every (batch, head, query tile), at any
-sequence length: the kernels mask their own ragged edge.
+sequence length: the kernels mask their own ragged edge. q may hold a slice
+of the sequence's rows (``q_offset``: a rank's share of a sequence-sharded
+q) against every key.
 
 The route follows from the dtype alone (``route``): bf16 inputs take the
 tensor-core kernel (``csrc/flash_attention_wgmma.cu``: wgmma, TMA, a
@@ -46,7 +48,7 @@ _ENTRY = {"wgmma": "flash_attention_wgmma_launch",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P] * 4 + [_I] * 7 + [_F, _F] + [_I] * 3 + [_P]  # as in the .cu
+_ARGTYPES = [_P] * 4 + [_I] * 9 + [_F, _F] + [_I] * 3 + [_P]  # as in the .cu
 
 
 def route(dtype: torch.dtype) -> str:
@@ -56,12 +58,13 @@ def route(dtype: torch.dtype) -> str:
     return ROUTES[dtype]
 
 
-def launch_grid(B: int, H: int, S: int,
+def launch_grid(B: int, H: int, Sq: int,
                 route: str) -> tuple[int, int, int]:
-    """The CUDA grid of a launch of ``route``'s kernel: one block per
-    (BLOCK_Q[route] query rows, head, batch row), in (x, y, z) order, the
-    last row block ragged. ``geometry.py`` declares the same grid."""
-    return (-(-S // BLOCK_Q[route]), H, B)
+    """The CUDA grid of a launch of ``route``'s kernel over ``Sq`` query
+    rows: one block per (BLOCK_Q[route] query rows, head, batch row), in
+    (x, y, z) order, the last row block ragged. ``geometry.py`` declares
+    the same grid."""
+    return (-(-Sq // BLOCK_Q[route]), H, B)
 
 
 def _lib() -> ctypes.CDLL:
@@ -76,10 +79,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0):
-    """q: [B,H,S,hd]; k, v: [B,K,S,hd] (K divides H), contiguous, f32 or
-    bf16, on one CUDA device -> [B,H,S,hd] in q's dtype. ``window`` > 0
-    keeps keys with ``q_pos - k_pos < window``; ``softcap`` > 0 applies
+                    softcap: float = 0.0, q_offset: int = 0):
+    """q: [B,H,Sq,hd]; k, v: [B,K,Sk,hd] (K divides H), contiguous, f32
+    or bf16, on one CUDA device -> [B,H,Sq,hd] in q's dtype. Query row i
+    stands at position ``q_offset + i`` and key row j at j, with
+    ``0 <= q_offset`` and ``q_offset + Sq <= Sk``. ``window`` > 0 keeps
+    keys with ``q_pos - k_pos < window``; ``softcap`` > 0 applies
     ``tanh(s / softcap) * softcap`` to the scaled scores. The output has
     no ``grad_fn``: under grad mode an input that requires grad raises
     (``ops.attention_op`` differentiates)."""
@@ -94,18 +99,22 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          "attention_ref for tensors on the host")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention: q, k and v must be 4-d")
-    B, H, S, hd = q.shape
-    K = k.shape[1]
+    B, H, Sq, hd = q.shape
+    K, Sk = k.shape[1], k.shape[2]
     kind = route(q.dtype)
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
     if K < 1 or H % K:
         raise ValueError(f"flash_attention: {H} query heads are not a "
                          f"multiple of {K} kv heads")
-    if B < 1 or S < 1:
+    if B < 1 or Sq < 1:
         raise ValueError(f"flash_attention: empty input {tuple(q.shape)}")
+    if q_offset < 0 or q_offset + Sq > Sk:
+        raise ValueError(f"flash_attention: query rows {q_offset} .. "
+                         f"{q_offset + Sq - 1} do not lie in the {Sk} keys")
     dev = q.device
-    for name, x, heads in (("q", q, H), ("k", k, K), ("v", v, K)):
+    for name, x, heads, S in (("q", q, H, Sq), ("k", k, K, Sk),
+                              ("v", v, K, Sk)):
         _build.check_tensor("flash_attention", name, x, q.dtype,
                             (B, heads, S, hd), dev)
     out = torch.empty_like(q)
@@ -114,8 +123,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, _ENTRY[kind])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, K, S, hd, int(bool(causal)), max(int(window), 0),
-            hd ** -0.5, float(softcap), *launch_grid(B, H, S, kind), stream,
+            B, H, K, Sq, Sk, int(q_offset), hd, int(bool(causal)),
+            max(int(window), 0), hd ** -0.5, float(softcap),
+            *launch_grid(B, H, Sq, kind), stream,
         )
     if rc != 0:
         raise _build.launch_error("flash_attention", rc,

@@ -26,20 +26,23 @@ class _KernelAttention(torch.autograd.Function):
     ``attention_ref`` recomputed on the saved q, k and v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
         ctx.save_for_backward(q, k, v)
-        ctx.kw = dict(causal=causal, window=window, softcap=softcap)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      q_offset=q_offset)
         return flash_attention(q, k, v, **ctx.kw)
 
     @staticmethod
     def backward(ctx, grad_out):
         return (*recompute_vjp(attention_ref, ctx, grad_out, **ctx.kw),
-                None, None, None)
+                None, None, None, None)
 
 
 def attention_op(q, k, v, *, causal=True, window=0, softcap=0.0,
-                 backend: str = "auto"):
-    """q: [B,H,S,hd]; k, v: [B,K,S,hd] -> [B,H,S,hd].
+                 q_offset=0, backend: str = "auto"):
+    """q: [B,H,Sq,hd]; k, v: [B,K,Sk,hd] -> [B,H,Sq,hd], query row i at
+    position ``q_offset + i`` (``q_offset + Sq <= Sk``; without an offset
+    Sq = Sk).
 
     backend: "auto" -> the CUDA kernel for CUDA tensors, the plain PyTorch
     version for CPU tensors; "kernel" -> the CUDA kernel (raises on CPU
@@ -49,8 +52,10 @@ def attention_op(q, k, v, *, causal=True, window=0, softcap=0.0,
     backward recomputes the plain version (``_KernelAttention``).
 
     DTensors (a model on a mesh) run on their local shards through
-    ``spmd.attend``: q sharded by batch rows or heads; a sequence-sharded
-    q raises ``NotImplementedError`` (the kernel takes no causal offset).
+    ``spmd.attend``: q sharded by batch rows, heads or sequence; a rank's
+    share of a sequence-sharded q goes in at its first row's position
+    against every key, whose gradients are then partial sums over the
+    shares.
 
     Launches are counted in ``flash_attention.launches``: the forward's, and
     again a recomputed forward's under ``torch.utils.checkpoint``; the
@@ -58,19 +63,21 @@ def attention_op(q, k, v, *, causal=True, window=0, softcap=0.0,
     """
     if spmd.is_dtensor(q):
         # local_map: the kernel reads raw pointers, so a DTensor never
-        # reaches it; the work of a batch row or a q head is local
-        def core(ql, kl, vl, _):
-            return attention_op(ql, kl.contiguous(), vl.contiguous(),
-                                causal=causal, window=window,
-                                softcap=softcap, backend=backend)
+        # reaches it; the work of a batch row, a q head or a share of the
+        # q rows against every key is local
+        def core(ql, kl, vl, s0):
+            return attention_op(ql.contiguous(), kl.contiguous(),
+                                vl.contiguous(), causal=causal,
+                                window=window, softcap=softcap,
+                                q_offset=q_offset + s0, backend=backend)
 
-        return spmd.attend(core, q, k, v, q_heads=1, kv_heads=1, q_seq=2,
-                           offset_ok=False)
+        return spmd.attend(core, q, k, v, q_heads=1, kv_heads=1, q_seq=2)
     if backend == "auto":
         backend = "kernel" if q.is_cuda else "ref"
     if backend == "kernel":
-        return _KernelAttention.apply(q, k, v, causal, window, softcap)
+        return _KernelAttention.apply(q, k, v, causal, window, softcap,
+                                      q_offset)
     if backend != "ref":
         raise ValueError(f"unknown attention backend: {backend!r}")
     return attention_ref(q, k, v, causal=causal, window=window,
-                         softcap=softcap)
+                         softcap=softcap, q_offset=q_offset)

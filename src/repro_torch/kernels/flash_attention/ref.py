@@ -8,14 +8,17 @@ import torch
 NEG_INF = -1e30
 
 
-def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
-    """q: [B,H,S,hd]; k, v: [B,K,S,hd] (K divides H) -> [B,H,S,hd].
+def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
+                  q_offset=0):
+    """q: [B,H,Sq,hd]; k, v: [B,K,Sk,hd] (K divides H) -> [B,H,Sq,hd].
 
     Materialises the full score matrix in f32; the output is in q's dtype.
+    Query row i stands at position ``q_offset + i``, key row j at j.
     ``window`` > 0 keeps keys with ``q_pos - k_pos < window``; ``softcap``
     > 0 applies ``tanh(s / softcap) * softcap`` after the ``hd**-0.5``
     scale."""
-    B, H, S, hd = q.shape
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
     group = H // k.shape[1]
     k = k.repeat_interleave(group, dim=1)
     v = v.repeat_interleave(group, dim=1)
@@ -23,9 +26,10 @@ def attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0):
     s = s * hd ** -0.5
     if softcap > 0:
         s = torch.tanh(s / softcap) * softcap
-    pos = torch.arange(S, dtype=torch.int32, device=q.device)
-    qp, kp = pos[:, None], pos[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    qp = torch.arange(q_offset, q_offset + Sq, dtype=torch.int32,
+                      device=q.device)[:, None]
+    kp = torch.arange(Sk, dtype=torch.int32, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= qp >= kp
     if window > 0:

@@ -309,8 +309,9 @@ def _attention_on_mesh(p, x, dims: AttnDims, positions, window: int,
     """``attention`` of DTensors: q sequence-sharded where the hint asks
     (the q projection then reads only the local rows of x), the core
     through ``spmd.attend`` on local shards: the CUDA kernel's route for a
-    CUDA tensor, ``_sdpa`` with the mask of the local rows otherwise.
-    The positions are the model's, 0 .. S-1."""
+    CUDA tensor (a rank's rows at their offset against every key),
+    ``_sdpa`` with the mask of the local rows otherwise. The positions
+    are the model's, 0 .. S-1."""
     del positions
     xq = x
     if _ATTN_Q_SHARDING is not None and x.shape[1] > 1:

@@ -234,11 +234,11 @@ def local(fn, mesh, args: tuple, in_placements: tuple, out_placements):
 
 
 def attend(core, q, k, v, *extra, q_heads: int, kv_heads: int,
-           q_seq: int | None = None, offset_ok: bool = True):
+           q_seq: int | None = None):
     """Attention of DTensors through ``local``: ``core(q, k, v, *extra,
     q_offset)`` on the local shards, ``q_offset`` the global position of
     the first local query. q's sharded dims may be its batch (dim 0), its
-    heads (``q_heads``) and, where ``offset_ok``, its sequence (``q_seq``);
+    heads (``q_heads``) and its sequence (``q_seq``);
     k and v (heads at ``kv_heads``) follow q's batch, and its heads where
     theirs are sharded alike, else stay replicated and each rank slices
     the kv heads its q heads read (local because a q head ``h`` reads kv
@@ -246,10 +246,6 @@ def attend(core, q, k, v, *extra, q_heads: int, kv_heads: int,
     Returns a DTensor placed as q."""
     mesh = q.device_mesh
     q, k, v = settle(q), settle(k), settle(v)
-    if not offset_ok and q_seq is not None and Shard(q_seq) in q.placements:
-        raise NotImplementedError(
-            "attention with a sequence-sharded q needs a causal offset "
-            "that the flash-attention kernel does not take")
     if any(p.is_shard() and p.dim not in (0, q_heads, q_seq)
            for p in q.placements):
         raise NotImplementedError(f"attention with q placed {q.placements}")
@@ -276,8 +272,16 @@ def attend(core, q, k, v, *extra, q_heads: int, kv_heads: int,
         vl = vl.narrow(kv_heads, lo, n_kv)
         return core(ql, kl, vl, *ex, s0)
 
-    return local(fn, mesh, (q, k, v, *extra),
-                 (q.placements, kv_pl, kv_pl, *ex_pl), q.placements)
+    out = local(fn, mesh, (q, k, v, *extra),
+                (q.placements, kv_pl, kv_pl, *ex_pl), q.placements)
+    if out.shape != q.shape:
+        # local_map takes the shares for even: a sequence that the mesh
+        # dim does not divide gets its global shape back
+        out = DTensor.from_local(out.to_local(), mesh, out.placements,
+                                 shape=q.shape,
+                                 stride=torch.empty(q.shape,
+                                                    device="meta").stride())
+    return out
 
 
 def scan(fn, x, *others, maps: tuple, channel: int):

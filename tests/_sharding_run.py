@@ -26,10 +26,20 @@ output) on a 2 x 2 and a 1 x 4 mesh, against ``chunk``, and
 ``decode_attention_op`` of caches sharded on their sequence against its
 plain version of the whole tensors.
 
+Then the sequence-sharded q: ``attention_op`` of a q placed on its
+sequence over ``model`` (the dispatch the card takes, the plain version
+on the CPU: each rank's rows at their offset against every key) against
+the reference's ``attention_ref`` of the whole tensors and its vjp
+(``DIR/attention_offset.npz``), on the 2 x 2 and a 1 x 4 mesh; and
+HINTED_ARCH reduced with heads that do not divide ``model`` (HINTED_HEADS),
+so that ``configure_attention_sharding`` sets the hint itself: its prefill
+logits, train loss and gradients against ``DIR/<arch>-hinted.npz``.
+
 Each check raises on a miss (the rank then exits non-zero); rank 0 writes
 the measured differences to ``DIR/result.json``.
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -50,6 +60,21 @@ from repro_torch.models.transformer import Model
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 
 ARCHS = ("qwen2.5-3b", "moonshot-v1-16b-a3b")
+#: the arch run with a sequence-sharded q: 3 heads and 1 kv head do not
+#: divide ``model`` (2) on the 2 x 2 mesh; S 32 crosses the shards'
+#: boundary at 16 and the reduced window of 16
+HINTED_ARCH = "gemma2-2b"
+HINTED_HEADS = dict(n_heads=3, n_kv_heads=1)
+#: attention on a sequence-sharded q: (name, mesh shape, B, H, K, S, hd,
+#: options, q's spec); S 30 gives the 1 x 4 mesh ragged shares (8, 8, 8, 6)
+ATTN_SEQ_CASES = (
+    ("2x2-window-softcap", (2, 2), 2, 4, 2, 32, 16,
+     {"window": 8, "softcap": 20.0}, ("data", None, "model", None)),
+    ("1x4-causal", (1, 4), 1, 4, 2, 30, 16, {},
+     (None, None, "model", None)),
+)
+ATTN_TOL = 1e-5            # absolute, f32 outputs
+ATTN_GRAD_TOL = 1e-4       # of each gradient's max |reference|
 #: decode: batch 4 (rows over data) and 1 (the cache's sequence over
 #: data), DECODE_STEPS steps from position DECODE_POS of a cache of
 #: DECODE_CACHE, across its slices' boundary at 16
@@ -58,6 +83,11 @@ DECODE_CACHE, DECODE_POS, DECODE_STEPS = 32, 14, 4
 LOGITS_TOL = 1e-4          # absolute, f32 logits
 LOSS_RTOL = 1e-5           # relative
 GRAD_TOL = 1e-4            # of each leaf's max |reference|
+
+
+def _load(out_dir: str, name: str) -> dict:
+    with np.load(os.path.join(out_dir, f"{name}.npz")) as f:
+        return {k: f[k] for k in f.files}
 
 
 def _tree(flat: dict, prefix: str) -> dict:
@@ -250,6 +280,98 @@ def check_decode_on_sequence_shards(mesh) -> float:
     return worst
 
 
+def check_attention_on_sequence_shards(data: dict) -> dict:
+    """``attention_op`` of each ATTN_SEQ_CASES q DTensor, k and v over the
+    batch's data shards only: the output equal to the reference's within
+    ATTN_TOL, and the gradients of q, k and v (k's and v's partial sums
+    over the shares) within ATTN_GRAD_TOL of each one's max. Returns the
+    largest differences."""
+    from repro_torch.kernels.flash_attention.ops import attention_op
+
+    worst = {"out": 0.0, "grad": 0.0}
+    for name, shape, *_, kw, spec in ATTN_SEQ_CASES:
+        mesh = make_mesh(shape, ("data", "model"))
+        kv_spec = (spec[0], None, None, None)
+        q, k, v, g = (torch.from_numpy(data[f"{name}/{x}"])
+                      for x in ("q", "k", "v", "g"))
+        qd = spmd.distribute(q, mesh, spec).requires_grad_(True)
+        kd, vd = (spmd.distribute(t, mesh, kv_spec).requires_grad_(True)
+                  for t in (k, v))
+        out = attention_op(qd, kd, vd, causal=True, **kw)
+        assert out.placements == qd.placements, (name, out.placements)
+        (out * spmd.distribute(g, mesh, spec)).sum().backward()
+        err = float((out.full_tensor()
+                     - torch.from_numpy(data[f"{name}/out"])).abs().max())
+        assert err <= ATTN_TOL, (name, "out", err)
+        worst["out"] = max(worst["out"], err)
+        for x, t in (("q", qd), ("k", kd), ("v", vd)):
+            ref = data[f"{name}/d{x}"]
+            rel = float(np.abs(t.grad.full_tensor().numpy() - ref).max()
+                        / max(float(np.abs(ref).max()), 1e-30))
+            assert rel <= ATTN_GRAD_TOL, (name, x, rel)
+            worst["grad"] = max(worst["grad"], rel)
+    return worst
+
+
+def hinted_config():
+    return dataclasses.replace(reduced(get_config(HINTED_ARCH)),
+                               **HINTED_HEADS)
+
+
+def run_hinted(mesh, data: dict) -> dict:
+    """HINTED_ARCH at HINTED_HEADS on ``mesh``: the prefill logits, the
+    train loss and every gradient leaf against the reference's, with the
+    attention hint set by ``configure_attention_sharding`` in both."""
+    from repro_torch.models import layers
+
+    cfg = hinted_config()
+    params = _tree(data, "p/")
+    batch = {k: torch.from_numpy(data[k]) for k in ("tokens", "labels")}
+    res = {}
+
+    sharding.configure_attention_sharding(mesh, cfg, "prefill")
+    res["prefill_hint"] = layers._ATTN_Q_SHARDING
+    specs, _ = _specs(mesh, cfg, "prefill")
+    model = carry.model_on_mesh_from_numpy(cfg, params, mesh, specs,
+                                           device="cpu")
+    shape = InputShape("run", batch["tokens"].shape[1],
+                       batch["tokens"].shape[0], "prefill")
+    b = spmd.distribute_tree(
+        {"tokens": batch["tokens"]}, mesh,
+        sharding.batch_specs(mesh, cfg, shape, {"tokens": batch["tokens"]}))
+    with torch.no_grad():
+        logits = model(b)[0].full_tensor()
+    err = float((logits - torch.from_numpy(data["logits"])).abs().max())
+    assert err <= LOGITS_TOL, (HINTED_ARCH, "logits", err)
+    res["logits_max_abs_err"] = err
+
+    model = Model(cfg, device="cpu")
+    model.load_state_dict(carry.model_params_from_numpy(cfg, params,
+                                                        device="cpu"))
+    model.requires_grad_(True)
+    opt, place_batch = place_on_mesh(mesh, cfg, model)
+    res["train_hint"] = layers._ATTN_Q_SHARDING
+    loss = model.loss(place_batch(batch))
+    loss.backward()
+    loss = float(loss.full_tensor())
+    want = float(data["loss"])
+    assert abs(loss - want) <= LOSS_RTOL * abs(want), (loss, want)
+    res["loss_rel_err"] = abs(loss - want) / abs(want)
+    grads = _flat(carry.model_params_to_numpy(
+        cfg, {k: p.grad for k, p in model.named_parameters()}))
+    assert set(grads) == {k[2:] for k in data if k.startswith("g/")}
+    worst = 0.0
+    for path, g in grads.items():
+        ref = data["g/" + path]
+        rel = float(np.abs(g - ref).max()) / max(float(np.abs(ref).max()),
+                                                  1e-30)
+        assert rel <= GRAD_TOL, (HINTED_ARCH, path, rel)
+        worst = max(worst, rel)
+    res["grad_worst_rel_err"] = worst
+    reset_hints(cfg, shape)
+    return res
+
+
 def main() -> None:
     rank, world, port, out_dir = (int(sys.argv[1]), int(sys.argv[2]),
                                   int(sys.argv[3]), sys.argv[4])
@@ -262,9 +384,12 @@ def main() -> None:
                "decode_on_sequence_shards_max_abs_err":
                    check_decode_on_sequence_shards(mesh)}
         for arch in ARCHS:
-            with np.load(os.path.join(out_dir, f"{arch}.npz")) as f:
-                data = {k: f[k] for k in f.files}
-            out[arch] = run_arch(mesh, arch, data, out_dir)
+            out[arch] = run_arch(mesh, arch, _load(out_dir, arch), out_dir)
+        out["attention_on_sequence_shards"] = \
+            check_attention_on_sequence_shards(
+                _load(out_dir, "attention_offset"))
+        out["hinted"] = run_hinted(mesh, _load(out_dir,
+                                               f"{HINTED_ARCH}-hinted"))
         if rank == 0:
             with open(os.path.join(out_dir, "result.json"), "w") as f:
                 json.dump(out, f)

@@ -7,6 +7,13 @@ kernel tests sweep (GQA, MQA, sliding window, softcap, non-causal), and to
 the JAX ``attention_ref`` alone at ragged sequence lengths, which the Pallas
 kernel's block tiling does not take. Inputs are seeded numpy, f32.
 
+The same at a query offset: a rank that holds the rows [s0, s0 + Sq) of a
+sequence-sharded q computes them against every key,
+``attention_ref(q[:, :, s0:s0 + Sq], k, v, q_offset=s0)``, which must equal
+those rows of both JAX references on the whole sequence, with s0 on and
+off the CUDA kernels' blocks of 64 and 128 rows; and the kernel route's
+autograd keeps the offset for its backward.
+
 Tolerance: 1e-5 absolute. Both sides compute the same f32 masked softmax;
 their sums run in different orders, which moves outputs of magnitude ~1 by
 a few 1e-7.
@@ -20,6 +27,7 @@ torch against both packages' attention_ref within the bf16 tolerance.
 """
 
 import ctypes
+import functools
 import re
 from pathlib import Path
 
@@ -34,6 +42,7 @@ from repro.kernels.flash_attention.flash_attention import (
 from repro.kernels.flash_attention.ref import attention_ref as attention_ref_j
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as fa_t
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import attention_op
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -65,32 +74,146 @@ KERNEL_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", KERNEL_CASES,
-                         ids=lambda c: "B{}H{}K{}S{}hd{}bq{}bk{}".format(
-                             *c[:7]) + "".join(f"-{k}{v}" for k, v in
-                                               c[7].items()))
-def test_attention_ref_matches_jax_ref_and_pallas_kernel(case):
-    B, H, K, S, hd, bq, bk, kw = case
+def _case_id(i):
+    return "B{}H{}K{}S{}hd{}bq{}bk{}".format(*KERNEL_CASES[i][:7]) + "".join(
+        f"-{k}{v}" for k, v in KERNEL_CASES[i][7].items())
+
+
+@functools.lru_cache(maxsize=None)
+def _whole(i):
+    """KERNEL_CASES[i]'s inputs and the JAX package's attention_ref and
+    Pallas kernel (interpret mode) on the whole sequence."""
+    B, H, K, S, hd, bq, bk, kw = KERNEL_CASES[i]
     xs = _inputs(B, H, K, S, hd, seed=S + hd)
+    js = [jnp.asarray(x) for x in xs]
+    ref = np.asarray(attention_ref_j(*js, **kw))
+    ker = np.asarray(flash_attention_j(*js, block_q=bq, block_k=bk,
+                                       interpret=True, **kw))
+    return xs, ref, ker
+
+
+@pytest.mark.parametrize("i", range(len(KERNEL_CASES)), ids=_case_id)
+def test_attention_ref_matches_jax_ref_and_pallas_kernel(i):
+    B, H, K, S, hd, _, _, kw = KERNEL_CASES[i]
+    xs, ref, ker = _whole(i)
     got = _port(xs, **kw)
-    ref = np.asarray(attention_ref_j(*map(jnp.asarray, xs), **kw))
-    ker = np.asarray(flash_attention_j(*map(jnp.asarray, xs), block_q=bq,
-                                       block_k=bk, interpret=True, **kw))
     assert got.shape == (B, H, S, hd) and got.dtype == np.float32
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
     np.testing.assert_allclose(got, ker, rtol=0, atol=ATOL)
 
 
-@pytest.mark.parametrize("S", [37, 173])
-@pytest.mark.parametrize("kw", [
+RAGGED_KW = pytest.mark.parametrize("kw", [
     {}, {"window": 8, "softcap": 20.0}, {"causal": False},
     {"causal": False, "window": 16},
 ], ids=["causal", "window8-softcap20", "bidirectional", "bidirectional-w16"])
+
+
+@pytest.mark.parametrize("S", [37, 173])
+@RAGGED_KW
 def test_attention_ref_ragged_matches_jax_ref(S, kw):
     xs = _inputs(2, 4, 2, S, 32, seed=S)
     got = _port(xs, **kw)
     ref = np.asarray(attention_ref_j(*map(jnp.asarray, xs), **kw))
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# a query offset: a rank's share of a sequence-sharded q
+# ---------------------------------------------------------------------------
+
+def _shares(S):
+    """(s0, Sq) of a share: the last half (the heaviest rank's rows under
+    causal masking), s0 on the CUDA kernels' blocks of 64 and 128 rows at S
+    128 and 256, and a ragged share whose first row lies off every
+    block."""
+    return {"last-half": (S // 2, S - S // 2),
+            "off-block": (S // 3 + 1, S // 4 + 3)}
+
+
+SHARES = pytest.mark.parametrize("share", ["last-half", "off-block"])
+
+
+def _rows(xs, s0, Sq, **kw):
+    """The port's attention_ref of q's rows [s0, s0 + Sq) at their offset
+    against every key."""
+    q, k, v = map(torch.from_numpy, xs)
+    out = attention_ref(q[:, :, s0:s0 + Sq], k, v, q_offset=s0, **kw)
+    assert out.shape == (q.shape[0], q.shape[1], Sq, q.shape[3])
+    return out.numpy()
+
+
+@SHARES
+@pytest.mark.parametrize("i", range(len(KERNEL_CASES)), ids=_case_id)
+def test_offset_rows_match_jax_ref_and_pallas_kernel(i, share):
+    kw = KERNEL_CASES[i][7]
+    xs, ref, ker = _whole(i)
+    s0, Sq = _shares(xs[0].shape[2])[share]
+    got = _rows(xs, s0, Sq, **kw)
+    np.testing.assert_allclose(got, ref[:, :, s0:s0 + Sq], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, ker[:, :, s0:s0 + Sq], rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("S", [37, 173])
+@RAGGED_KW
+@SHARES
+def test_ragged_offset_rows_match_jax_ref(S, kw, share):
+    xs = _inputs(2, 4, 2, S, 32, seed=S + 1)
+    ref = np.asarray(attention_ref_j(*map(jnp.asarray, xs), **kw))
+    s0, Sq = _shares(S)[share]
+    np.testing.assert_allclose(_rows(xs, s0, Sq, **kw),
+                               ref[:, :, s0:s0 + Sq], rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("kw", [{}, {"window": 8, "softcap": 20.0}],
+                         ids=["causal", "window8-softcap20"])
+def test_shares_concatenate_to_the_whole(kw):
+    """Four shares of S 100 (25 rows each), each at its offset, put
+    together give the whole sequence's attention."""
+    xs = _inputs(1, 4, 2, 100, 32, seed=11)
+    whole = attention_ref(*map(torch.from_numpy, xs), **kw).numpy()
+    parts = [_rows(xs, s0, 25, **kw) for s0 in range(0, 100, 25)]
+    np.testing.assert_allclose(np.concatenate(parts, axis=2), whole, rtol=0,
+                               atol=ATOL)
+
+
+def test_no_offset_is_the_whole_sequence():
+    xs = [torch.from_numpy(x) for x in _inputs(2, 4, 2, 37, 32, seed=2)]
+    kw = dict(window=8, softcap=20.0)
+    assert torch.equal(attention_ref(*xs, q_offset=0, **kw),
+                       attention_ref(*xs, **kw))
+
+
+def test_kernel_route_keeps_the_offset_for_its_backward(monkeypatch):
+    """``attention_op(..., q_offset=s0, backend="kernel")`` with the kernel
+    swapped for its plain version (on the card the CUDA kernel computes
+    it): the kernel is called with the offset, and the output and the
+    gradients of q, k and v equal the plain route's autograd (the backward
+    recomputes attention_ref at the same offset)."""
+    calls = []
+
+    def fake_kernel(*xs, **kw):
+        assert not torch.is_grad_enabled()
+        calls.append(kw["q_offset"])
+        return attention_ref(*xs, **kw)
+
+    monkeypatch.setattr(fa_ops, "flash_attention", fake_kernel)
+    rng = np.random.default_rng(5)
+    xs = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          for s in ((2, 4, 10, 32), (2, 2, 24, 32), (2, 2, 24, 32))]
+    w = torch.from_numpy(rng.standard_normal((2, 4, 10, 32)).astype(
+        np.float32))
+    kw = dict(causal=True, window=8, softcap=20.0, q_offset=9)
+    out, grads = {}, {}
+    for backend in ("kernel", "ref"):
+        leaves = [x.clone().requires_grad_(True) for x in xs]
+        y = attention_op(*leaves, backend=backend, **kw)
+        (y * w).sum().backward()
+        out[backend] = y.detach()
+        grads[backend] = [x.grad for x in leaves]
+    assert calls == [9]
+    torch.testing.assert_close(out["kernel"], out["ref"], rtol=0, atol=0)
+    for gk, gr in zip(grads["kernel"], grads["ref"]):
+        torch.testing.assert_close(gk, gr, rtol=0, atol=0)
 
 
 def test_attention_ref_keeps_bf16():
@@ -111,29 +234,39 @@ NEG_INF = -1e30
 
 
 def _wgmma_algebra(q, k, v, *, causal=True, window=0, softcap=0.0,
-                   bq=128, bk=128):
+                   bq=128, bk=128, q_offset=0):
     """The bf16 kernel's arithmetic (csrc/flash_attention_wgmma.cu) on the
-    host, tile by tile: blocks of ``bq`` query rows over the key tiles of
-    ``bk`` the masks leave partly visible; the scale folded into the
-    exponent (or scores scaled and capped first); masked scores -1e30 on a
-    partly visible tile and an exponent offset of +inf for a row that has
+    host, tile by tile: blocks of ``bq`` of q's Sq rows, row i at position
+    ``q_offset + i``, over the key tiles of ``bk`` of the Sk keys that the
+    masks leave partly visible at those positions; the scale folded into
+    the exponent (or scores scaled and capped first); masked scores -1e30
+    on a tile that ``all_visible`` does not find wholly visible to a
+    warpgroup's 64 rows, and an exponent offset of +inf for a row that has
     seen no key yet, so a masked p is 0 exactly; p split into bf16 halves
     hi + lo for the P V product; l summing the f32 p; O / max(l, 1e-30)."""
-    B, H, S, hd = q.shape
+    B, H, Sq, hd = q.shape
+    Sk = k.shape[2]
     group = H // k.shape[1]
     scale = hd ** -0.5
     sl = LOG2E if softcap > 0 else scale * LOG2E
     out = torch.empty(q.shape, dtype=torch.float32)
-    pos = torch.arange(S)
+    local, pos = torch.arange(Sq), torch.arange(Sk)
+
+    def all_visible(k0, p_lo):
+        return (k0 + bk <= Sk and (not causal or k0 + bk - 1 <= p_lo)
+                and (window <= 0 or p_lo + 63 - k0 < window))
+
     for b in range(B):
         for h in range(H):
             qf = q[b, h].float()
             kf, vf = k[b, h // group].float(), v[b, h // group].float()
-            for q0 in range(0, S, bq):
-                rows = pos[q0:q0 + bq]
-                q_last = min(q0 + bq, S) - 1
-                k_end = q_last + 1 if causal else S
-                k_begin = max(0, q0 - window + 1) if window > 0 else 0
+            for q0 in range(0, Sq, bq):
+                rows = local[q0:q0 + bq]
+                qpos = q_offset + rows
+                q_last = min(q0 + bq, Sq) - 1
+                k_end = q_offset + q_last + 1 if causal else Sk
+                k_begin = (max(0, q_offset + q0 - window + 1) if window > 0
+                           else 0)
                 m = torch.full((len(rows),), NEG_INF)
                 l = torch.zeros(len(rows))
                 acc = torch.zeros(len(rows), hd)
@@ -144,9 +277,14 @@ def _wgmma_algebra(q, k, v, *, causal=True, window=0, softcap=0.0,
                         s = torch.tanh(s * (scale / softcap)) * softcap
                     vis = torch.ones(s.shape, dtype=torch.bool)
                     if causal:
-                        vis &= rows[:, None] >= keys[None, :]
+                        vis &= qpos[:, None] >= keys[None, :]
                     if window > 0:
-                        vis &= rows[:, None] - keys[None, :] < window
+                        vis &= qpos[:, None] - keys[None, :] < window
+                    # each warpgroup's 64 rows skip the mask on a tile
+                    # all_visible finds wholly visible to them
+                    for w0 in range(0, len(rows), 64):
+                        if all_visible(k0, q_offset + q0 + w0):
+                            vis[w0:w0 + 64] = True
                     s = torch.where(vis, s, NEG_INF)
                     mn = torch.maximum(m, s.amax(-1))
                     a = torch.exp2((m - mn) * sl)
@@ -163,13 +301,21 @@ def _wgmma_algebra(q, k, v, *, causal=True, window=0, softcap=0.0,
 
 # the small shapes of chip_smoke.py's ATTN_CASES (waste S 173, ragged,
 # bidirectional) in bf16, and a narrow tile that leaves windowed rows a
-# first tile with nothing visible
+# first tile with nothing visible; then q's rows [s0, s0 + Sq) of S at
+# their offset ("rows": (s0, Sq)), s0 on and off the block, Sq ragged
 ALGEBRA_CASES = [
     (1, 8, 8, 173, 64, {}),
     (2, 4, 2, 37, 32, {"window": 8, "softcap": 20.0}),
     (1, 4, 2, 300, 128, {"causal": False}),
     (1, 2, 1, 200, 112, {"window": 40, "bk": 16, "bq": 32}),
     (1, 2, 2, 130, 256, {"softcap": 50.0, "bk": 64}),
+    (1, 8, 8, 173, 64, {"rows": (45, 100)}),
+    (1, 4, 2, 512, 128, {"rows": (256, 256)}),
+    (1, 2, 1, 200, 112, {"window": 40, "bk": 16, "bq": 32,
+                         "rows": (96, 70)}),
+    (2, 4, 2, 300, 128, {"causal": False, "window": 30, "rows": (128, 128)}),
+    (1, 2, 2, 330, 256, {"window": 100, "softcap": 50.0, "bk": 64,
+                         "rows": (200, 130)}),
 ]
 
 
@@ -178,15 +324,21 @@ ALGEBRA_CASES = [
                          + "".join(f"-{k}{v}" for k, v in c[5].items()))
 def test_wgmma_algebra_matches_the_references(case):
     """The kernel's tile-wise online softmax with P as bf16 halves, held to
-    the port's and the JAX package's attention_ref within ATTN_TOL[bf16]."""
+    the port's and the JAX package's attention_ref within ATTN_TOL[bf16];
+    at an offset, to the port's at that offset and to the JAX package's
+    rows of the whole sequence."""
     B, H, K, S, hd, kw = case
+    kw = dict(kw)
     tiles = {t: kw.pop(t) for t in ("bq", "bk") if t in kw}
+    s0, Sq = kw.pop("rows", (0, S))
     xs = [torch.from_numpy(x).bfloat16()
           for x in _inputs(B, H, K, S, hd, seed=7 * S + hd)]
-    got = _wgmma_algebra(*xs, **kw, **tiles)
-    want = attention_ref(*xs, **kw)
+    q = xs[0][:, :, s0:s0 + Sq]
+    got = _wgmma_algebra(q, *xs[1:], q_offset=s0, **kw, **tiles)
+    want = attention_ref(q, *xs[1:], q_offset=s0, **kw)
     jax_want = np.asarray(attention_ref_j(
-        *(jnp.asarray(x.float().numpy()) for x in xs), **kw))
+        *(jnp.asarray(x.float().numpy()) for x in xs), **kw))[
+        :, :, s0:s0 + Sq]
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                rtol=0, atol=ATTN_TOL_BF16)
     np.testing.assert_allclose(got.float().numpy(), jax_want, rtol=0,

@@ -295,6 +295,20 @@ def test_every_chip_smoke_window_query_case_is_declared_on_its_route():
     assert seen == set(wq_t.ROUTES)
 
 
+def test_every_chip_smoke_rank_share_is_declared():
+    """Each rank share ``chip_smoke.py`` times at a query offset (q
+    [B,H,Sq,hd] against k and v [B,K,Sk,hd]) is a registered geometry of
+    its route."""
+    smoke = _chip_smoke()
+    declared = {(g.case.split("-")[0], g.inputs[0].array_shape,
+                 g.inputs[1].array_shape)
+                for g in load_registry()["flash_attention"]()}
+    for c in smoke.OFFSET_CASES[:smoke.OFFSET_TIMED]:
+        name, B, H, K, Sq, Sk, _, hd, dt, *_ = c
+        assert (fa_t.route(dt), (B, H, Sq, hd), (B, K, Sk, hd)) in \
+            declared, name
+
+
 @pytest.mark.parametrize("kernel,fn,argtypes", [
     ("window_query", "window_query_batched_launch",
      wq_t._BATCHED_ARGTYPES),

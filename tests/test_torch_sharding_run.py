@@ -15,11 +15,21 @@ The same ranks hold ``spmd.halves`` (Mamba's split of its column-sharded
 ``in_proj`` output, one all-to-all) to ``chunk`` on 2 x 2 and 1 x 4
 meshes, values and gradient.
 
+A sequence-sharded q, each rank's rows at their offset against every key:
+``attention_op`` on the 2 x 2 and a 1 x 4 mesh against the reference's
+``attention_ref`` of the whole tensors (within 1e-5) and its vjp (q, k and
+v within 1e-4 of each one's max); and reduced gemma2-2b with 3 heads and 1
+kv head, which do not divide ``model`` (2), so that the port's
+``configure_attention_sharding`` shards q's sequence as the reference's
+hint does: prefill logits within 1e-4, the train loss within 1e-5 of it
+and every gradient leaf within 1e-4 of the leaf's max.
+
 Also: ``launch/mesh.py`` and ``train(mesh_kind="prod")`` refuse a world
 size they cannot shape, and the fake process group the dry run uses
 imports.
 """
 
+import dataclasses
 import json
 import os
 import socket
@@ -33,6 +43,7 @@ import pytest
 
 import repro.configs as configs_j
 import repro.models.moe as moe_j
+from repro.kernels.flash_attention.ref import attention_ref as attention_ref_j
 from repro.models.transformer import Model as Model_j
 from repro_torch.checkpoint import save
 
@@ -41,10 +52,13 @@ sys.path.insert(0, HERE)
 
 from _sharding_run import (  # noqa: E402
     ARCHS,
+    ATTN_SEQ_CASES,
     DECODE_BATCHES,
     DECODE_CACHE,
     DECODE_POS,
     DECODE_STEPS,
+    HINTED_ARCH,
+    HINTED_HEADS,
     _flat,
 )
 
@@ -88,6 +102,48 @@ def _reference(arch: str, out_dir: str) -> None:
     save(os.path.join(out_dir, f"{arch}_ckpt"), params)
 
 
+def _batch(cfg, rng) -> dict:
+    return {k: rng.integers(0, cfg.vocab_size, (BATCH, SEQ), dtype=np.int32)
+            for k in ("tokens", "labels")}
+
+
+def _hinted_reference(out_dir: str) -> None:
+    """HINTED_ARCH reduced at HINTED_HEADS on one CPU device: its
+    parameters, batch, logits, loss and gradients."""
+    cfg = dataclasses.replace(
+        configs_j.reduced(configs_j.get_config(HINTED_ARCH)), **HINTED_HEADS)
+    model = Model_j(cfg)
+    params = jax.device_get(model.init(jax.random.PRNGKey(0)))
+    batch = _batch(cfg, np.random.default_rng(1))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    logits = model.forward(params, {"tokens": jb["tokens"]})[0]
+    loss, grads = jax.value_and_grad(model.loss)(params, jb)
+    np.savez(os.path.join(out_dir, f"{HINTED_ARCH}-hinted.npz"),
+             **{"p/" + k: np.asarray(v) for k, v in _flat(params).items()},
+             **{"g/" + k: np.asarray(v)
+                for k, v in _flat(jax.device_get(grads)).items()},
+             **batch, logits=np.asarray(logits), loss=np.asarray(loss))
+
+
+def _attention_reference(out_dir: str) -> None:
+    """Each ATTN_SEQ_CASES case's inputs, a cotangent, and the
+    reference's ``attention_ref`` of the whole tensors with its vjp."""
+    rng = np.random.default_rng(2)
+    arrays = {}
+    for name, _, B, H, K, S, hd, kw, _ in ATTN_SEQ_CASES:
+        q, k, v, g = (rng.standard_normal(shape).astype(np.float32)
+                      for shape in ((B, H, S, hd), (B, K, S, hd),
+                                    (B, K, S, hd), (B, H, S, hd)))
+        out, vjp = jax.vjp(lambda *x: attention_ref_j(*x, causal=True, **kw),
+                           *map(jnp.asarray, (q, k, v)))
+        grads = vjp(jnp.asarray(g))
+        arrays.update({f"{name}/{x}": a for x, a in (
+            ("q", q), ("k", k), ("v", v), ("g", g), ("out", out),
+            *zip(("dq", "dk", "dv"), grads))})
+    np.savez(os.path.join(out_dir, "attention_offset.npz"),
+             **{k: np.asarray(a) for k, a in arrays.items()})
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -99,6 +155,8 @@ def result(tmp_path_factory):
     out = tmp_path_factory.mktemp("sharding_run")
     for arch in ARCHS:
         _reference(arch, str(out))
+    _hinted_reference(str(out))
+    _attention_reference(str(out))
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(HERE, "..", "src"), os.environ.get("PYTHONPATH", "")]))
@@ -154,6 +212,32 @@ def test_decode_attention_on_sequence_shards(result):
 
 def test_mamba_split_of_a_sharded_projection(result):
     assert result["halves"] == "equal"
+
+
+def test_attention_on_a_sequence_sharded_q(result):
+    """``attention_op`` of a q sharded on its sequence over ``model``
+    (each rank's rows at their offset against every key) equals the
+    reference's ``attention_ref`` of the whole tensors, and its gradients
+    (k's and v's summed over the shares) the reference's vjp."""
+    worst = result["attention_on_sequence_shards"]
+    assert worst["out"] <= 1e-5
+    assert worst["grad"] <= 1e-4
+
+
+def test_hinted_arch_shards_q_on_its_sequence(result):
+    """3 heads do not divide ``model``: the hint shards q's sequence in
+    prefill and train, as the reference's does."""
+    assert result["hinted"]["prefill_hint"] == "model"
+    assert result["hinted"]["train_hint"] == "model"
+
+
+def test_hinted_prefill_logits_equal_reference(result):
+    assert result["hinted"]["logits_max_abs_err"] <= 1e-4
+
+
+def test_hinted_train_loss_and_gradients_equal_reference(result):
+    assert result["hinted"]["loss_rel_err"] <= 1e-5
+    assert result["hinted"]["grad_worst_rel_err"] <= 1e-4
 
 
 def _run(code: str) -> subprocess.CompletedProcess:

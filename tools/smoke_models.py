@@ -3,7 +3,7 @@
 checks: quicker than the whole smoke run when only the models changed.
 
     python3 tools/smoke_models.py [paths] [serve] [plain] [train] [dryrun]
-        [mesh]
+        [mesh] [offset]
 
 ``paths``: the full moonshot-v1-16b-a3b, deepseek-v2-236b at full width
 cut to 2 layers and the full seamless-m4t-medium, forward and decode
@@ -15,7 +15,10 @@ kernel-vs-plain gradients, the checkpoint round trip and the backward
 times (``train_phase``); ``dryrun``: the dry run's traces held to the
 card (``dryrun_phase``); ``mesh``: the production mesh's route on a 1 x 1
 mesh held to the no-mesh route, and two 16 x 16 records
-(``mesh_phase``). No argument runs all six. The
+(``mesh_phase``, ``mesh_records``); ``offset``: attention on a
+sequence-sharded q, the kernels at a query offset and the hinted mesh
+route on the 1 x 1 mesh (``q_offset_phase``). No argument runs all
+seven. The
 kernels are built first, as ``chip_smoke.py`` builds them. Every line is
 JSON; the first names the card and its power limit. Exits non-zero
 without CUDA or when a check fails.
@@ -23,7 +26,6 @@ without CUDA or when a check fails.
 
 from __future__ import annotations
 
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -31,7 +33,7 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-PHASES = ("paths", "serve", "plain", "train", "dryrun", "mesh")
+PHASES = ("paths", "serve", "plain", "train", "dryrun", "mesh", "offset")
 
 
 def main() -> None:
@@ -49,12 +51,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    smoke.emit({"card": smi, "torch": torch.__version__})
+    smoke.emit({"card": smoke.smi_line(), "torch": torch.__version__})
     t0 = time.perf_counter()
     _build.build(smoke.KERNELS)
     smoke.emit({"phase": "build", "seconds": time.perf_counter() - t0})
@@ -68,8 +65,14 @@ def main() -> None:
         smoke.train_phase(dev)
     if "dryrun" in what:
         smoke.dryrun_phase(dev)
-    if "mesh" in what:
-        smoke.mesh_phase(dev)
+    if "mesh" in what or "offset" in what:
+        with smoke.mesh_session() as mesh:
+            if "mesh" in what:
+                smoke.mesh_phase(dev, mesh)
+            if "offset" in what:
+                smoke.q_offset_phase(dev, mesh)
+        if "mesh" in what:
+            smoke.mesh_records()
 
 
 if __name__ == "__main__":

@@ -19,21 +19,16 @@ build or differs from its plain version.
 
 from __future__ import annotations
 
-import json
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
-
-ROOT = Path(__file__).resolve().parent.parent
+from _trees import ROOT, exit_if_failed, import_tree, parse_trees, run_trees
 
 
 def child(label: str, tree: Path, inputs: Path) -> None:
-    sys.path.insert(0, str(tree / "src"))
-    sys.path.insert(1, str(ROOT))
-    import chip_smoke as smoke
+    smoke, package = import_tree(label, tree)
     from repro_torch.kernels import _build
     from repro_torch.kernels.placement import placement
     from repro_torch.kernels.placement.ref import fused_place_ref
@@ -49,7 +44,8 @@ def child(label: str, tree: Path, inputs: Path) -> None:
     smoke.check(all(same), f"{label}: fused_place differs from its plain "
                            f"version: {same}")
     row = smoke.time_fused_place(dev, case)
-    smoke.emit({"tree": label, "path": str(tree), **row,
+    smoke.emit({"tree": label, "path": str(tree),
+                "package": str(package), **row,
                 "outputs_bit_identical": same, "ptxas": ptxas,
                 "from_cache": not logs})
 
@@ -58,40 +54,18 @@ def main() -> None:
     if sys.argv[1:2] == ["--child"]:
         child(sys.argv[2], Path(sys.argv[3]).resolve(), Path(sys.argv[4]))
         return
-    if not torch.cuda.is_available():
-        print("time_fused_place: CUDA is not available", file=sys.stderr)
-        sys.exit(1)
-    trees = [a.split("=", 1) for a in sys.argv[1:]]
-    if not trees or any(len(t) != 2 for t in trees):
-        print(__doc__, file=sys.stderr)
-        sys.exit(2)
-    sys.path.insert(0, str(ROOT))
-    sys.path.insert(0, str(ROOT / "src"))
+    trees = parse_trees(__file__, __doc__)
     import chip_smoke as smoke
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
     case = smoke.fused_place_cases()[0][1]
     inputs = ROOT / "build" / "time_fused_place_inputs.npz"
     inputs.parent.mkdir(exist_ok=True)
     np.savez(inputs, **{f"a{i}": x for i, x in enumerate(case)})
-    failed = []
     try:
-        for label, tree in trees:
-            print(json.dumps({"start": label, "path": tree}), flush=True)
-            rc = subprocess.run([sys.executable, __file__, "--child", label,
-                                 tree, str(inputs)]).returncode
-            if rc:
-                failed.append(label)
+        failed = run_trees(__file__, trees, str(inputs))
     finally:
         inputs.unlink(missing_ok=True)
-    if failed:
-        print(f"time_fused_place: failed: {failed}", file=sys.stderr)
-        sys.exit(1)
+    exit_if_failed(__file__, failed)
 
 
 if __name__ == "__main__":

@@ -24,20 +24,16 @@ version.
 
 from __future__ import annotations
 
-import json
 import subprocess
 import sys
 from pathlib import Path
 
 import torch
-
-ROOT = Path(__file__).resolve().parent.parent
+from _trees import ROOT, exit_if_failed, import_tree, parse_trees, run_trees
 
 
 def child(label: str, tree: Path) -> None:
-    sys.path.insert(0, str(tree / "src"))
-    sys.path.insert(1, str(ROOT))
-    import chip_smoke as smoke
+    smoke, package = import_tree(label, tree)
     from repro_torch.kernels import _build
     from repro_torch.kernels.window_query import window_query as wq
     from repro_torch.kernels.window_query.ops import window_query_batched_op
@@ -72,7 +68,8 @@ def child(label: str, tree: Path) -> None:
                  if case == "fleet-hp-view-8192")
     op_us = smoke.host_us({"op": lambda: window_query_batched_op(*fleet)})[
         "op"]
-    smoke.emit({"tree": label, "path": str(tree), "summary": summary,
+    smoke.emit({"tree": label, "path": str(tree),
+                "package": str(package), "summary": summary,
                 "outputs_bit_identical": True,
                 "hp_query_op_host_us": op_us,
                 "check_launches_by_route": routes,
@@ -117,31 +114,11 @@ def main() -> None:
     if sys.argv[1:2] == ["--floor"]:
         floor()
         return
-    if not torch.cuda.is_available():
-        print("time_window_query: CUDA is not available", file=sys.stderr)
-        sys.exit(1)
-    trees = [a.split("=", 1) for a in sys.argv[1:]]
-    if not trees or any(len(t) != 2 for t in trees):
-        print(__doc__, file=sys.stderr)
-        sys.exit(2)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    failed = []
-    for label, tree in trees:
-        print(json.dumps({"start": label, "path": tree}), flush=True)
-        rc = subprocess.run([sys.executable, __file__, "--child", label,
-                             tree]).returncode
-        if rc:
-            failed.append(label)
+    trees = parse_trees(__file__, __doc__)
+    failed = run_trees(__file__, trees)
     if subprocess.run([sys.executable, __file__, "--floor"]).returncode:
         failed.append("--floor")
-    if failed:
-        print(f"time_window_query: failed: {failed}", file=sys.stderr)
-        sys.exit(1)
+    exit_if_failed(__file__, failed)
 
 
 if __name__ == "__main__":
