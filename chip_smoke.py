@@ -132,10 +132,13 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    rows, the ``*_d`` series summing to the final counters, the ``.npz``
    round trip and the Chrome trace of replicas 0 and 8191 valid;
 19. profile: a ``PhaseTimer`` counts one ``fleet/segment`` span a
-   segment; with ``REPRO_PROFILE_DIR`` set a 5-tick run writes one
-   ``torch.profiler`` trace naming ``fused_place_kernel`` and
-   ``window_query_kernel``; under ``profile_device`` it still runs and
-   writes nothing;
+   segment and the tick's phase spans, with telemetry off and on; a
+   device-timed one gives each tick's device time and ``fused_place``'s
+   counters, whose commits are the stats' ``lp_completed +
+   hp_preempted``, at the same launches; with ``REPRO_PROFILE_DIR`` set
+   a 5-tick run writes one ``torch.profiler`` trace naming
+   ``fused_place_kernel`` and ``window_query_kernel``; under
+   ``profile_device`` it still runs and writes nothing;
 20. obs CLI: ``repro_torch.obs.cli.main`` records B 8 x 95 frames of
    weighted2 at 0.3 on the card (equal bit for bit to the host's) and
    the serial DES, exports and summarises both; the traces valid;
@@ -787,17 +790,23 @@ def check_fused_place(dev) -> float:
     err = 0.0
     for name, case in fused_place_cases():
         ref = fused_place_ref(*to_card(case, dev))
-        ker = placement.fused_place(*to_card(case, dev))
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        ker = placement.fused_place(*to_card(case, dev), counts=counts)
         torch.cuda.synchronize()
         same = [bit_equal(r, k) for r, k in zip(ref, ker)]
+        want_counts = [int(case[7].sum()), int(ref[3].sum())]
         err = max(err, max_abs_err(ref, ker))
         emit({"phase": "kernel", "kernel": "fused_place", "case": name,
               "B": len(case[0]), "outputs_bit_identical": same,
               "max_abs_err": err, "ok_rows": int(ref[3].sum()),
               "dropped": int(ref[8].sum()),
-              "use4_rows": int((ref[3] & ref[7]).sum())})
+              "use4_rows": int((ref[3] & ref[7]).sum()),
+              "counts": counts.tolist(), "counts_want": want_counts})
         check(all(same), f"fused_place differs from its plain version "
                          f"in case {name}: {same}")
+        check(counts.tolist() == want_counts,
+              f"fused_place counted {counts.tolist()} rows attempted and "
+              f"committed in case {name}, not {want_counts}")
         if name.startswith("all-do-false"):
             kept = [bit_equal(k, x) for k, x in
                     zip(ker[:3], to_card(case[:3], dev))]
@@ -2242,11 +2251,13 @@ def telemetry_phase(dev, values, bw, main_leaves):
 
 def profile_phase(dev, values, bw):
     """``obs/profile.py`` on the card: a PhaseTimer around the fleet path
-    counts one ``fleet/segment`` span a segment (and, with telemetry,
-    one host transfer); with ``REPRO_PROFILE_DIR`` set a 5-tick run
-    writes one ``torch.profiler`` trace naming both fleet kernels; under
-    ``profile_device``'s own profiler the hook passes through and the run
-    still works."""
+    counts one ``fleet/segment`` span a segment and the tick's phase
+    spans, with telemetry off and on; a device-timed timer times every
+    span on the card and counts ``fused_place``'s rows attempted and
+    committed, at the same launches; with ``REPRO_PROFILE_DIR`` set a
+    5-tick run writes one ``torch.profiler`` trace naming both fleet
+    kernels; under ``profile_device``'s own profiler the hook passes
+    through and the run still works."""
     from repro_torch.fleet import FleetParams, fleet_run, make_fleet
     from repro_torch.obs import PhaseTimer, profile
 
@@ -2262,6 +2273,15 @@ def profile_phase(dev, values, bw):
             torch.cuda.synchronize()
         spans["on" if tel else "off"] = timer.summary()
         del fleet
+    reset_counts()
+    with PhaseTimer(device_time=True) as timed:
+        _, stats = fleet_run(make_fleet(B_MAIN, device=dev), values, bw,
+                             params=params)
+        torch.cuda.synchronize()
+    timed_counts = nonzero_counts()
+    phases = timed.phases()
+    counters = timed.counters()["fleet/fused_place"]
+    commits = int(stats.lp_completed.sum() + stats.hp_preempted.sum())
 
     trace_dir = OBS_DIR / "torch_trace"
     if trace_dir.exists():
@@ -2298,6 +2318,9 @@ def profile_phase(dev, values, bw):
                for k in ("fused_place_kernel", "window_query_kernel")}
     emit({"phase": "profile", "replicas": B_MAIN, "frames": F,
           "spans_off": spans["off"], "spans_on": spans["on"],
+          "device_timed": {"phases": phases, "counters": counters,
+                           "commits": commits,
+                           "launches": timed_counts},
           "segments": n_seg, "trace_files": [f.name for f in files],
           "trace_bytes": files[0].stat().st_size if files else None,
           "trace_kernels_named": kernels,
@@ -2312,9 +2335,16 @@ def profile_phase(dev, values, bw):
         check(sp.get("fleet/segment", {}).get("count") == n_seg,
               f"telemetry {label}: {sp.get('fleet/segment')} segment spans, "
               f"not {n_seg}")
-    check(spans["on"].get("fleet/telemetry_host_transfer", {}).get(
-        "count") == 1 and "fleet/telemetry_host_transfer" not in
-        spans["off"], "the telemetry host-transfer span")
+    want_spans = {"fleet/segment", "fleet/tick", "fleet/requeue",
+                  "fleet/hp", "fleet/lp", "fleet/compaction"}
+    check(set(spans["on"]) == set(spans["off"]) == want_spans,
+          f"spans {sorted(spans['off'])} / {sorted(spans['on'])}")
+    check(all(row["device_ms"] is not None for row in phases.values()),
+          f"spans without device time: {phases}")
+    check(sum(ok for _, ok in counters) == commits,
+          f"fused_place counted {counters}, the stats {commits} commits")
+    check(timed_counts == fleet_launches(F),
+          f"the device-timed run launched {timed_counts}")
     check(len(files) == 1, f"REPRO_PROFILE_DIR wrote {len(files)} traces")
     check(all(kernels.values()), f"the trace does not name {kernels}")
     check(traced_counts == fleet_launches(5),

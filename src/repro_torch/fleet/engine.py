@@ -21,7 +21,10 @@ compaction and the bookkeeping are plain PyTorch.
 With ``telemetry`` on, each kept tick also captures the series of
 ``obs/telemetry.py`` from the end-of-tick carry (read-only, ~120 small
 ops); with ``mesh_shards >= 1`` the batch is split across devices
-(``fleet/mesh.py``) and the shards advance tick by tick in turn.
+(``fleet/mesh.py``) and the shards advance tick by tick in turn. Under
+an active ``obs/profile.py`` timer each tick and its phases run in spans,
+and a device-timed timer also gets ``fused_place``'s attempt counters
+(``fleet_run``).
 
 Every expression keeps the JAX package's operand order and dtypes, so a
 CPU run reproduces it bit for bit. Three rules make that hold:
@@ -149,17 +152,21 @@ def _hp_commit(st: SchedState, dev: int, s, e, do):
     return st._replace(win_t1=t1, win_t2=t2, win_valid=valid), n_drop
 
 
-def _place_lp(st: SchedState, q1, dl, src, do, p: FleetParams):
+def _place_lp(st: SchedState, q1, dl, src, do, p: FleetParams,
+              counts=None, slot: int = 0):
     """One batched §IV.B.2 placement attempt through the fused kernel:
     2-core preferred, 4-core fallback, source-device preference, earliest
     start, committed in the same launch. ``q1``/``dl`` are [B, Dev],
     ``src`` the [B] source device, ``do`` masks the attempt per replica.
+    ``counts``, the [n_slots, 2] attempt counters or None, gets the rows
+    attempted and committed added to row ``slot``.
     Returns (state', ok, sel, start, dur, use4, n_dropped); windows of
     replicas with ``ok=False`` are untouched."""
     t1, t2, valid, ok, sel, start, dur, use4, n_drop = fused_place_op(
         st.win_t1, st.win_t2, st.win_valid, st.min_dur,
         q1.contiguous(), dl.contiguous(), src.contiguous(), do.contiguous(),
         backend=p.placement_backend, cfg_pref=LP2_IDX, cfg_fallback=LP4_IDX,
+        counts=None if counts is None else counts[slot],
     )
     st = st._replace(win_t1=t1, win_t2=t2, win_valid=valid)
     return st, ok, sel, start, dur, use4, n_drop
@@ -187,11 +194,22 @@ def _i32(x):
 
 
 def _frame_step(carry, f: int, v, bws, p: FleetParams,
-                capture: bool = False):
+                capture: bool = False, counts=None):
     """Advance every replica by one frame tick ``f`` (a host int); ``v`` is
     the [B, Dev] workload of the tick, ``bws`` the [B] bandwidth scale.
-    Returns the new carry and, with ``capture``, the tick's
-    ``TelemetryFrame`` (else None)."""
+    ``counts`` (or None) is the [1 + Dev·(1 + MAX_LP), 2] buffer of
+    ``fused_place``'s rows attempted and committed per attempt slot: 0 the
+    re-queue pass, 1 + d device d's victim re-placement, 1 + Dev + d·MAX_LP
+    + k its LP attempt k. Returns the new carry and, with ``capture``, the
+    tick's ``TelemetryFrame`` (else None).
+
+    The phases run in spans (``obs/profile.py``) inside the caller's
+    ``fleet/tick``: ``fleet/compaction``, ``fleet/requeue`` (the pass at
+    the tick's start, and each device's victim re-placement and buffer
+    push), ``fleet/hp`` (each device's HP query, fan-out commit and its
+    drop count) and ``fleet/lp`` (each device's LP attempts and
+    ``frames_completed``); the housekeeping, the transfer time and the
+    other accounting lines are the tick's own time."""
     st, link_free, (rq_dl, rq_src, rq_ok), vc, stats = carry
     stats0 = stats
     if capture:
@@ -211,7 +229,8 @@ def _frame_step(carry, f: int, v, bws, p: FleetParams,
     # housekeeping: recycle slots of fully-elapsed windows
     st = st._replace(win_valid=st.win_valid & (st.win_t2 > base))
     if p.compact_every > 0 and f % p.compact_every == p.compact_every - 1:
-        st = compact_state(st)
+        with _profile.span("fleet/compaction"):
+            st = compact_state(st)
 
     # a float32 tensor over a tensor: a Python scalar over a tensor is a
     # reciprocal times the scalar in torch, and can differ in the last bit
@@ -223,43 +242,45 @@ def _frame_step(carry, f: int, v, bws, p: FleetParams,
     now0 = torch.zeros((B,), dtype=torch.float32, device=device) + base
     min_lp_dur = torch.minimum(st.min_dur[:, LP2_IDX], st.min_dur[:, LP4_IDX])
     if R > 0:
-        expired = rq_ok & (clock.plus(min_lp_dur)[:, None] > rq_dl)
-        rq_ok = rq_ok & ~expired
-        stats = stats._replace(
-            missed_by_preemption=stats.missed_by_preemption
-            + expired.sum(1, dtype=torch.int32)
-        )
-        # one placement attempt per tick for the earliest-deadline survivor
-        slot = torch.where(rq_ok, rq_dl, BIG).argmin(1)
-        valid_r = rq_ok[rows, slot]
-        dl = rq_dl[rows, slot]
-        src = rq_src[rows, slot]
-        comm_end = torch.maximum(link_free, now0) + ttime
-        q1 = torch.where(
-            dev_ids[None, :] == src[:, None], now0[:, None],
-            torch.maximum(now0, comm_end)[:, None],
-        )
-        dlb = dl[:, None].expand(B, n_dev)
-        st, ok, sel, start, dur, use4, nd = _place_lp(
-            st, q1, dlb, src, valid_r, p
-        )
-        offl = ok & (sel != src)
-        link_free = torch.where(offl, comm_end, link_free)
-        # the re-placed victim is now the newest commit on its device
-        vc_s, vc_end, vc_dl, vc_src, vc_ok = _vc_commit(
-            (vc_s, vc_end, vc_dl, vc_src, vc_ok), ok, sel, start,
-            start + dur, dl, src
-        )
-        stats = stats._replace(
-            lp_completed=stats.lp_completed + ok,
-            lp_requeued=stats.lp_requeued + ok,
-            lp_offloaded=stats.lp_offloaded + offl,
-            lp_four_core=stats.lp_four_core + (ok & use4),
-            comm_busy=stats.comm_busy + torch.where(offl, ttime, 0.0),
-            remainders_dropped=stats.remainders_dropped + nd,
-        )
-        rq_ok = rq_ok.clone()
-        rq_ok[rows, slot] = valid_r & ~ok
+        with _profile.span("fleet/requeue"):
+            expired = rq_ok & (clock.plus(min_lp_dur)[:, None] > rq_dl)
+            rq_ok = rq_ok & ~expired
+            stats = stats._replace(
+                missed_by_preemption=stats.missed_by_preemption
+                + expired.sum(1, dtype=torch.int32)
+            )
+            # one placement attempt per tick for the earliest-deadline
+            # survivor
+            slot = torch.where(rq_ok, rq_dl, BIG).argmin(1)
+            valid_r = rq_ok[rows, slot]
+            dl = rq_dl[rows, slot]
+            src = rq_src[rows, slot]
+            comm_end = torch.maximum(link_free, now0) + ttime
+            q1 = torch.where(
+                dev_ids[None, :] == src[:, None], now0[:, None],
+                torch.maximum(now0, comm_end)[:, None],
+            )
+            dlb = dl[:, None].expand(B, n_dev)
+            st, ok, sel, start, dur, use4, nd = _place_lp(
+                st, q1, dlb, src, valid_r, p, counts, 0
+            )
+            offl = ok & (sel != src)
+            link_free = torch.where(offl, comm_end, link_free)
+            # the re-placed victim is now the newest commit on its device
+            vc_s, vc_end, vc_dl, vc_src, vc_ok = _vc_commit(
+                (vc_s, vc_end, vc_dl, vc_src, vc_ok), ok, sel, start,
+                start + dur, dl, src
+            )
+            stats = stats._replace(
+                lp_completed=stats.lp_completed + ok,
+                lp_requeued=stats.lp_requeued + ok,
+                lp_offloaded=stats.lp_offloaded + offl,
+                lp_four_core=stats.lp_four_core + (ok & use4),
+                comm_busy=stats.comm_busy + torch.where(offl, ttime, 0.0),
+                remainders_dropped=stats.remainders_dropped + nd,
+            )
+            rq_ok = rq_ok.clone()
+            rq_ok[rows, slot] = valid_r & ~ok
 
     for d in range(n_dev):
         c_rel = d * (FRAME_PERIOD / n_dev) * p.stagger
@@ -271,82 +292,88 @@ def _frame_step(carry, f: int, v, bws, p: FleetParams,
         has_frame = vd >= 0
 
         # -- HP: immediate slot on the source device ------------------------
-        hp_dur = st.min_dur[:, HP_IDX]
-        hp_found, hp_start = _hp_query(
-            st, d, now, hp_dur,
-            now_plus(torch.clamp(hp_dur + 1e-6, min=p.hp_deadline)),
-            p.placement_backend,
-        )
-        if R > 0:
-            # the serial engine evicts only a task whose reserved slot
-            # overlaps the requested HP window (§IV.B.3)
-            victim_live = (vc_ok[:, d] & (vc_end[:, d] > now)
-                           & (vc_s[:, d] < now_plus(hp_dur)))
-        else:
-            # reallocation disabled: capacity-eviction semantics
-            victim_live = torch.ones((B,), dtype=torch.bool, device=device)
-        hp_ok = has_frame & (hp_found | victim_live)
-        preempt = has_frame & ~hp_found & victim_live
-        hp_fail = has_frame & ~hp_found & ~victim_live
-        # where nothing was found hp_start is the query's BIG; it is
-        # replaced here, before any use
-        hp_start = torch.where(hp_found, hp_start, now)
-        st, nd = _hp_commit(st, d, hp_start, hp_start + hp_dur, hp_ok)
-        stats = stats._replace(
-            remainders_dropped=stats.remainders_dropped + nd
-        )
+        with _profile.span("fleet/hp"):
+            hp_dur = st.min_dur[:, HP_IDX]
+            hp_found, hp_start = _hp_query(
+                st, d, now, hp_dur,
+                now_plus(torch.clamp(hp_dur + 1e-6, min=p.hp_deadline)),
+                p.placement_backend,
+            )
+            if R > 0:
+                # the serial engine evicts only a task whose reserved slot
+                # overlaps the requested HP window (§IV.B.3)
+                victim_live = (vc_ok[:, d] & (vc_end[:, d] > now)
+                               & (vc_s[:, d] < now_plus(hp_dur)))
+            else:
+                # reallocation disabled: capacity-eviction semantics
+                victim_live = torch.ones((B,), dtype=torch.bool,
+                                         device=device)
+            hp_ok = has_frame & (hp_found | victim_live)
+            preempt = has_frame & ~hp_found & victim_live
+            hp_fail = has_frame & ~hp_found & ~victim_live
+            # where nothing was found hp_start is the query's BIG; it is
+            # replaced here, before any use
+            hp_start = torch.where(hp_found, hp_start, now)
+            st, nd = _hp_commit(st, d, hp_start, hp_start + hp_dur, hp_ok)
+            stats = stats._replace(
+                remainders_dropped=stats.remainders_dropped + nd
+            )
 
         if R > 0:
-            vc_ok = vc_ok.clone()
-            vc_ok[:, d] = vc_ok[:, d] & ~preempt
-            # the victim's placement-time completion credit is revoked
-            stats = stats._replace(
-                lp_completed=stats.lp_completed - _i32(preempt)
-            )
+            with _profile.span("fleet/requeue"):
+                vc_ok = vc_ok.clone()
+                vc_ok[:, d] = vc_ok[:, d] & ~preempt
+                # the victim's placement-time completion credit is revoked
+                stats = stats._replace(
+                    lp_completed=stats.lp_completed - _i32(preempt)
+                )
 
-            # immediate reallocation attempt (§VI.A)
-            dl_v = vc_dl[:, d]
-            src_v = vc_src[:, d]
-            comm_end = torch.maximum(link_free, now) + ttime
-            q1 = torch.where(
-                dev_ids[None, :] == src_v[:, None], now[:, None],
-                torch.maximum(now, comm_end)[:, None],
-            )
-            st, ok_v, sel_v, start_v, dur_v, use4_v, nd = _place_lp(
-                st, q1, dl_v[:, None].expand(B, n_dev), src_v, preempt, p,
-            )
-            offl_v = ok_v & (sel_v != src_v)
-            link_free = torch.where(offl_v, comm_end, link_free)
-            vc_s, vc_end, vc_dl, vc_src, vc_ok = _vc_commit(
-                (vc_s, vc_end, vc_dl, vc_src, vc_ok), ok_v, sel_v,
-                start_v, start_v + dur_v, dl_v, src_v,
-            )
-            stats = stats._replace(
-                lp_completed=stats.lp_completed + ok_v,
-                lp_requeued=stats.lp_requeued + ok_v,
-                lp_offloaded=stats.lp_offloaded + offl_v,
-                lp_four_core=stats.lp_four_core + (ok_v & use4_v),
-                comm_busy=stats.comm_busy
-                + torch.where(offl_v, ttime, 0.0),
-                remainders_dropped=stats.remainders_dropped + nd,
-            )
+                # immediate reallocation attempt (§VI.A)
+                dl_v = vc_dl[:, d]
+                src_v = vc_src[:, d]
+                comm_end = torch.maximum(link_free, now) + ttime
+                q1 = torch.where(
+                    dev_ids[None, :] == src_v[:, None], now[:, None],
+                    torch.maximum(now, comm_end)[:, None],
+                )
+                st, ok_v, sel_v, start_v, dur_v, use4_v, nd = _place_lp(
+                    st, q1, dl_v[:, None].expand(B, n_dev), src_v, preempt,
+                    p, counts, 1 + d,
+                )
+                offl_v = ok_v & (sel_v != src_v)
+                link_free = torch.where(offl_v, comm_end, link_free)
+                vc_s, vc_end, vc_dl, vc_src, vc_ok = _vc_commit(
+                    (vc_s, vc_end, vc_dl, vc_src, vc_ok), ok_v, sel_v,
+                    start_v, start_v + dur_v, dl_v, src_v,
+                )
+                stats = stats._replace(
+                    lp_completed=stats.lp_completed + ok_v,
+                    lp_requeued=stats.lp_requeued + ok_v,
+                    lp_offloaded=stats.lp_offloaded + offl_v,
+                    lp_four_core=stats.lp_four_core + (ok_v & use4_v),
+                    comm_busy=stats.comm_busy
+                    + torch.where(offl_v, ttime, 0.0),
+                    remainders_dropped=stats.remainders_dropped + nd,
+                )
 
-            # unplaced victims enter the bounded re-queue buffer; a full
-            # buffer drops the victim (counted missed, not silent)
-            free = _i32(rq_ok).argmin(1)
-            has_free = ~rq_ok.all(1)
-            unplaced = preempt & ~ok_v
-            push = unplaced & has_free
-            rq_dl = rq_dl.clone()
-            rq_src = rq_src.clone()
-            rq_ok = rq_ok.clone()
-            rq_dl[rows, free] = torch.where(push, dl_v, rq_dl[rows, free])
-            rq_src[rows, free] = torch.where(push, src_v, rq_src[rows, free])
-            rq_ok[rows, free] = rq_ok[rows, free] | push
-            stats = stats._replace(
-                missed_by_preemption=stats.missed_by_preemption
-                + (unplaced & ~has_free),
-            )
+                # unplaced victims enter the bounded re-queue buffer; a
+                # full buffer drops the victim (counted missed, not silent)
+                free = _i32(rq_ok).argmin(1)
+                has_free = ~rq_ok.all(1)
+                unplaced = preempt & ~ok_v
+                push = unplaced & has_free
+                rq_dl = rq_dl.clone()
+                rq_src = rq_src.clone()
+                rq_ok = rq_ok.clone()
+                rq_dl[rows, free] = torch.where(push, dl_v,
+                                                rq_dl[rows, free])
+                rq_src[rows, free] = torch.where(push, src_v,
+                                                 rq_src[rows, free])
+                rq_ok[rows, free] = rq_ok[rows, free] | push
+                stats = stats._replace(
+                    missed_by_preemption=stats.missed_by_preemption
+                    + (unplaced & ~has_free),
+                )
 
         stats = stats._replace(
             frames=stats.frames + has_frame,
@@ -356,59 +383,65 @@ def _frame_step(carry, f: int, v, bws, p: FleetParams,
         )
 
         # -- LP: up to 4 DNN tasks once HP completes -------------------------
-        n_lp = torch.where(hp_ok, torch.clamp(vd, 0, MAX_LP), 0)
-        release = hp_start + hp_dur
-        # now + c_dl is base + (c_rel + c_dl), the constants summed in f32
-        c_dl = (torch.tensor(c_rel, dtype=torch.float32)
-                + torch.tensor(p.lp_deadline_factor * FRAME_PERIOD,
-                               dtype=torch.float32))
-        deadline = (torch.zeros((B,), dtype=torch.float32, device=device)
-                    + clock.plus(c_dl))
-        # without re-queue (R=0) the victim cache is written and never read,
-        # and XLA rounds the copy it stores in two steps, base + c_dl
-        vc_deadline = deadline if R > 0 else (
-            torch.zeros((B,), dtype=torch.float32, device=device)
-            + (base + c_dl))
-        frame_ok = hp_ok
-        src_d = torch.full((B,), d, dtype=torch.int32, device=device)
-        dl = deadline[:, None].expand(B, n_dev)
-        if capture:
-            lp_placed_d = torch.zeros((B,), dtype=torch.int32, device=device)
-        for k in range(MAX_LP):
-            mask = hp_ok & (k < n_lp)
-            comm_end = torch.maximum(link_free, release) + ttime
-            # remote devices can only start once their transfer lands
-            q1 = torch.where(
-                dev_ids[None, :] == d, release[:, None],
-                torch.maximum(release, comm_end)[:, None],
-            )
-            st, ok, sel, start, dur, use4, nd = _place_lp(
-                st, q1, dl, src_d, mask, p
-            )
-            offl = ok & (sel != d)
-            link_free = torch.where(offl, comm_end, link_free)
-            vc_s, vc_end, vc_dl, vc_src, vc_ok = _vc_commit(
-                (vc_s, vc_end, vc_dl, vc_src, vc_ok), ok, sel, start,
-                start + dur, vc_deadline, src_d,
-            )
-            stats = stats._replace(
-                lp_spawned=stats.lp_spawned + mask,
-                lp_completed=stats.lp_completed + ok,
-                lp_failed=stats.lp_failed + (mask & ~ok),
-                lp_offloaded=stats.lp_offloaded + offl,
-                lp_four_core=stats.lp_four_core + (ok & use4),
-                start_delay_sum=stats.start_delay_sum
-                + torch.where(ok, start - release, 0.0),
-                comm_busy=stats.comm_busy + torch.where(offl, ttime, 0.0),
-                remainders_dropped=stats.remainders_dropped + nd,
-            )
-            frame_ok = frame_ok & (ok | (k >= n_lp))
+        with _profile.span("fleet/lp"):
+            n_lp = torch.where(hp_ok, torch.clamp(vd, 0, MAX_LP), 0)
+            release = hp_start + hp_dur
+            # now + c_dl is base + (c_rel + c_dl), the constants summed in
+            # f32
+            c_dl = (torch.tensor(c_rel, dtype=torch.float32)
+                    + torch.tensor(p.lp_deadline_factor * FRAME_PERIOD,
+                                   dtype=torch.float32))
+            deadline = (torch.zeros((B,), dtype=torch.float32, device=device)
+                        + clock.plus(c_dl))
+            # without re-queue (R=0) the victim cache is written and never
+            # read, and XLA rounds the copy it stores in two steps,
+            # base + c_dl
+            vc_deadline = deadline if R > 0 else (
+                torch.zeros((B,), dtype=torch.float32, device=device)
+                + (base + c_dl))
+            frame_ok = hp_ok
+            src_d = torch.full((B,), d, dtype=torch.int32, device=device)
+            dl = deadline[:, None].expand(B, n_dev)
             if capture:
-                lp_placed_d = lp_placed_d + _i32(ok)
-        stats = stats._replace(
-            frames_completed=stats.frames_completed
-            + (has_frame & frame_ok)
-        )
+                lp_placed_d = torch.zeros((B,), dtype=torch.int32,
+                                          device=device)
+            for k in range(MAX_LP):
+                mask = hp_ok & (k < n_lp)
+                comm_end = torch.maximum(link_free, release) + ttime
+                # remote devices can only start once their transfer lands
+                q1 = torch.where(
+                    dev_ids[None, :] == d, release[:, None],
+                    torch.maximum(release, comm_end)[:, None],
+                )
+                st, ok, sel, start, dur, use4, nd = _place_lp(
+                    st, q1, dl, src_d, mask, p, counts,
+                    1 + n_dev + d * MAX_LP + k,
+                )
+                offl = ok & (sel != d)
+                link_free = torch.where(offl, comm_end, link_free)
+                vc_s, vc_end, vc_dl, vc_src, vc_ok = _vc_commit(
+                    (vc_s, vc_end, vc_dl, vc_src, vc_ok), ok, sel, start,
+                    start + dur, vc_deadline, src_d,
+                )
+                stats = stats._replace(
+                    lp_spawned=stats.lp_spawned + mask,
+                    lp_completed=stats.lp_completed + ok,
+                    lp_failed=stats.lp_failed + (mask & ~ok),
+                    lp_offloaded=stats.lp_offloaded + offl,
+                    lp_four_core=stats.lp_four_core + (ok & use4),
+                    start_delay_sum=stats.start_delay_sum
+                    + torch.where(ok, start - release, 0.0),
+                    comm_busy=stats.comm_busy
+                    + torch.where(offl, ttime, 0.0),
+                    remainders_dropped=stats.remainders_dropped + nd,
+                )
+                frame_ok = frame_ok & (ok | (k >= n_lp))
+                if capture:
+                    lp_placed_d = lp_placed_d + _i32(ok)
+            stats = stats._replace(
+                frames_completed=stats.frames_completed
+                + (has_frame & frame_ok)
+            )
         if capture:
             pd_run.append(hp_ok)
             pd_fail.append(hp_fail)
@@ -467,9 +500,18 @@ def fleet_run(fleet: FleetState, values, bw_scale, *, params: FleetParams):
     to the unsharded engine. ``REPRO_SANITIZE=1`` checks each segment's
     input state and every tick's windows, victim cache and link
     (``analysis/sanitize.py``), raising ``SanitizeError`` on a trip; the
-    results and launches are the same either way. Each segment runs in
-    ``obs/profile.py``'s ``span("fleet/segment")``, the whole loop in
-    ``maybe_torch_trace()``.
+    results and launches are the same either way.
+
+    The whole loop runs in ``maybe_torch_trace()``, and under an active
+    ``obs/profile.py`` timer the loop is a tree of spans: each segment a
+    ``fleet/segment``, in it each shard's tick a ``fleet/tick`` (traced
+    ``(run, f)``, ``run`` fresh each call, on the shard's device), and in
+    that the phases of ``_frame_step``. Under a device-timed timer each
+    span is also timed on the device, and every ``fused_place`` launch
+    adds its rows attempted and committed to the counter
+    ``fleet/fused_place`` ([1 + Dev·(1 + MAX_LP), 2], one row an attempt
+    slot, as ``_frame_step`` numbers them) inside the kernel: no launch of
+    its own. Results are bit-identical with and without a timer.
     """
     p = params
     device = fleet.link_free.device
@@ -526,9 +568,16 @@ def fleet_run(fleet: FleetState, values, bw_scale, *, params: FleetParams):
             work.append((values[:, cols].to(dev), bw_scale[:, cols].to(dev)))
     sanitize = _sanitize.enabled()
     segments = []
+    run_id = _profile.next_run_id()
+    # each shard's device, and its attempt counter, zeroed before the loop
+    # (None without a device-timed timer)
+    shard_devices = [carry[1].device for carry in carries]
+    counts = [_profile.counter("fleet/fused_place",
+                               (1 + n_dev * (1 + MAX_LP), 2), dev)
+              for dev in shard_devices]
     with _profile.maybe_torch_trace():
         for f0 in range(0, F, max(S, 1)):
-            with _profile.span("fleet/segment"):
+            with _profile.span("fleet/segment", device=device):
                 rows_kept = [[] for _ in carries]
                 if sanitize:
                     for carry in carries:
@@ -537,8 +586,11 @@ def fleet_run(fleet: FleetState, values, bw_scale, *, params: FleetParams):
                 for f in range(f0, min(f0 + S, F)):
                     capture = p.telemetry and f % every == 0
                     for i, (v, bw) in enumerate(work):
-                        carries[i], frame = _frame_step(
-                            carries[i], f, v[f], bw[f], p, capture)
+                        with _profile.span("fleet/tick", trace=(run_id, f),
+                                           device=shard_devices[i]):
+                            carries[i], frame = _frame_step(
+                                carries[i], f, v[f], bw[f], p, capture,
+                                counts[i])
                         if sanitize:
                             _check_tick(carries[i])
                         if capture:
@@ -563,15 +615,14 @@ def fleet_run(fleet: FleetState, values, bw_scale, *, params: FleetParams):
     )
     if not p.telemetry:
         return out, stats
-    with _profile.span("fleet/telemetry_host_transfer"):
-        host = [
-            _telemetry.TelemetryFrame(*(
-                np.concatenate(xs, axis=1) for xs in zip(*(
-                    _telemetry.frame_to_numpy(fr) for fr in shard_frames))))
-            for shard_frames in segments
-        ]
-        record = _telemetry.assemble(
-            host, n_frames=F, every=every, nominal_bw_bps=p.nominal_bw_bps,
-            n_replicas=B,
-        )
+    host = [
+        _telemetry.TelemetryFrame(*(
+            np.concatenate(xs, axis=1) for xs in zip(*(
+                _telemetry.frame_to_numpy(fr) for fr in shard_frames))))
+        for shard_frames in segments
+    ]
+    record = _telemetry.assemble(
+        host, n_frames=F, every=every, nominal_bw_bps=p.nominal_bw_bps,
+        n_replicas=B,
+    )
     return out, stats, record

@@ -18,6 +18,10 @@
 //
 // The commit is made IN PLACE on t1, t2 and valid, as the Pallas kernel does
 // through its input/output aliases. Rows with ok == false are not written.
+// With a counts pointer, the launch also adds its rows attempted (do) and
+// committed (ok) to counts[0] and counts[1]: each block counts its replicas
+// with __syncthreads_count and adds with one atomic a counter. With a null
+// pointer it does nothing more.
 //
 // Design: one warp per replica, 8 warps (8 replicas) a block. A config list
 // of a device is T x W = 32 slots of 9 bytes (t1, t2, valid), contiguous,
@@ -97,8 +101,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_place_kernel(
     const uint8_t* __restrict__ do_mask, uint8_t* __restrict__ ok_out,
     int32_t* __restrict__ sel_out, float* __restrict__ start_out,
     float* __restrict__ dur_out, uint8_t* __restrict__ use4_out,
-    int32_t* __restrict__ drop_out, int n_rows, int n_dev_arg, int cfg_pref,
-    int cfg_fallback, int occ_bits, float big, float src_pref) {
+    int32_t* __restrict__ drop_out,
+    unsigned long long* __restrict__ counts, int n_rows, int n_dev_arg,
+    int cfg_pref, int cfg_fallback, int occ_bits, float big, float src_pref) {
   static_assert(T * W == 32, "one lane a (track, window) slot of a list");
   constexpr int TW = T * W;
   constexpr int kLists = 2 * kDevChunk;   // lp2 and lp4 lists of a chunk
@@ -257,14 +262,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_place_kernel(
     use4_out[b] = use4 ? 1 : 0;
     drop_out[b] = ok ? n_drop : 0;
   }
+  if (counts != nullptr) {  // the same for the whole grid
+    // one warp a replica: its lane 0 stands for it
+    const bool head = live && lane == 0;
+    const int n_do = __syncthreads_count(head && do_mask[b] != 0);
+    const int n_ok = __syncthreads_count(head && ok);
+    if (threadIdx.x == 0) {
+      if (n_do) atomicAdd(counts, (unsigned long long)n_do);
+      if (n_ok) atomicAdd(counts + 1, (unsigned long long)n_ok);
+    }
+  }
 }
 
 template <int T, int W>
 void launch(void* t1, void* t2, void* valid, const void* min_dur, const void* q1,
             const void* dl, const void* src, const void* do_mask, void* ok,
             void* sel, void* start, void* dur, void* use4, void* n_drop,
-            int n_rows, int n_dev, int cfg_pref, int cfg_fallback, int occ_bits,
-            float big, float src_pref, cudaStream_t stream) {
+            void* counts, int n_rows, int n_dev, int cfg_pref,
+            int cfg_fallback, int occ_bits, float big, float src_pref,
+            cudaStream_t stream) {
   const int blocks = (n_rows + kWarps - 1) / kWarps;
   auto kernel = n_dev == 4 ? fused_place_kernel<T, W, 4>
                            : fused_place_kernel<T, W, 0>;
@@ -275,15 +291,17 @@ void launch(void* t1, void* t2, void* valid, const void* min_dur, const void* q1
       static_cast<const int32_t*>(src), static_cast<const uint8_t*>(do_mask),
       static_cast<uint8_t*>(ok), static_cast<int32_t*>(sel),
       static_cast<float*>(start), static_cast<float*>(dur),
-      static_cast<uint8_t*>(use4), static_cast<int32_t*>(n_drop), n_rows, n_dev,
-      cfg_pref, cfg_fallback, occ_bits, big, src_pref);
+      static_cast<uint8_t*>(use4), static_cast<int32_t*>(n_drop),
+      static_cast<unsigned long long*>(counts), n_rows, n_dev, cfg_pref,
+      cfg_fallback, occ_bits, big, src_pref);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches one placement attempt on `stream`. Returns 0, the
+// Launches one placement attempt on `stream`; `counts`, two int64 counters
+// of rows attempted and committed, or null. Returns 0, the
 // cudaGetLastError() code of the launch, -1 for a (T, W) this file was not
 // built for (the fleet's T=2 tracks of W=16 windows), or -2 if grid_x, the
 // wrapper's grid, is not the one this file's tiling needs. The caller
@@ -291,17 +309,17 @@ extern "C" {
 int fused_place_launch(void* t1, void* t2, void* valid, const void* min_dur,
                        const void* q1, const void* dl, const void* src,
                        const void* do_mask, void* ok, void* sel, void* start,
-                       void* dur, void* use4, void* n_drop, int n_rows,
-                       int n_dev, int n_tracks, int n_windows, int cfg_pref,
-                       int cfg_fallback, int occ_bits, float big,
-                       float src_pref, int grid_x, void* stream) {
+                       void* dur, void* use4, void* n_drop, void* counts,
+                       int n_rows, int n_dev, int n_tracks, int n_windows,
+                       int cfg_pref, int cfg_fallback, int occ_bits,
+                       float big, float src_pref, int grid_x, void* stream) {
   if (grid_x != (n_rows + kWarps - 1) / kWarps) return -2;
   if (n_rows == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FP_ARGS                                                             \
   t1, t2, valid, min_dur, q1, dl, src, do_mask, ok, sel, start, dur, use4, \
-      n_drop, n_rows, n_dev, cfg_pref, cfg_fallback, occ_bits, big,        \
-      src_pref, st
+      n_drop, counts, n_rows, n_dev, cfg_pref, cfg_fallback, occ_bits,     \
+      big, src_pref, st
   if (n_tracks == 2 && n_windows == 16) {
     launch<2, 16>(FP_ARGS);
   } else {

@@ -27,7 +27,7 @@ launches = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P] * 14 + [_I] * 7 + [_F, _F, _I, _P]  # as in fused_place_launch
+_ARGTYPES = [_P] * 15 + [_I] * 7 + [_F, _F, _I, _P]  # as in fused_place_launch
 
 #: OCC_TABLE packed into 3-bit fields, row-major over (task cfg, list cfg)
 _OCC_BITS = sum(
@@ -54,12 +54,14 @@ def _lib() -> ctypes.CDLL:
 
 
 def fused_place(t1, t2, valid, min_dur, q1, dl, src, do, *,
-                cfg_pref: int = 1, cfg_fallback: int = 2):
+                cfg_pref: int = 1, cfg_fallback: int = 2, counts=None):
     """One fused placement attempt for the whole batch in one launch.
 
     t1, t2: f32 [B, Dev, 3, 2, 16]; valid: bool, same
     shape; min_dur: f32 [B, 3]; q1, dl: f32 [B, Dev]; src: i32 [B];
-    do: bool [B]; all contiguous on one CUDA device. Returns
+    do: bool [B]; all contiguous on one CUDA device. ``counts``, an int64
+    [2] tensor there or None, gets the rows attempted (``do``) and
+    committed (``ok``) added in the launch. Returns
     ``(t1, t2, valid, ok, sel, start, dur, use4, n_dropped)`` — the first
     three are the inputs, committed in place.
     """
@@ -81,6 +83,9 @@ def fused_place(t1, t2, valid, min_dur, q1, dl, src, do, *,
             ("dl", dl, torch.float32, (B, n_dev)),
             ("src", src, torch.int32, (B,)), ("do", do, torch.bool, (B,))):
         _build.check_tensor("fused_place", name, x, dtype, shape, dev)
+    if counts is not None:
+        _build.check_tensor("fused_place", "counts", counts, torch.int64,
+                            (2,), dev)
     for c in (cfg_pref, cfg_fallback):
         if not 0 <= c < n_cfg:
             raise ValueError(f"fused_place: config index {c} out of range")
@@ -98,6 +103,7 @@ def fused_place(t1, t2, valid, min_dur, q1, dl, src, do, *,
             min_dur.data_ptr(), q1.data_ptr(), dl.data_ptr(), src.data_ptr(),
             do.data_ptr(), ok.data_ptr(), sel.data_ptr(), start.data_ptr(),
             dur.data_ptr(), use4.data_ptr(), n_drop.data_ptr(),
+            None if counts is None else counts.data_ptr(),
             B, n_dev, T, W, cfg_pref, cfg_fallback, _OCC_BITS, BIG, SRC_PREF,
             *launch_grid(B), stream,
         )

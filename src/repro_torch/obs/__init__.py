@@ -6,6 +6,15 @@ Counterpart of ``repro/obs``: ``events.py`` and ``export.py`` are copies,
 fleet's device, and ``profile.py``'s device hook is ``maybe_torch_trace``
 (a ``torch.profiler`` trace under ``REPRO_PROFILE_DIR``).
 
+``profile.py``'s ``PhaseTimer`` keeps a tree of spans: ``fleet_run``'s
+segments, each tick (traced ``(run, tick)``) and the tick's phases
+(compaction, re-queue, HP, LP), each with its parent, its device and its
+host start and end in ``time.time_ns()``, the clock of the profiler's
+host events. ``PhaseTimer(device_time=True)`` also times each span on
+the card by CUDA events, resolved after the caller synchronizes, and
+collects counters (``profile.counter``), such as ``fused_place``'s rows
+attempted and committed per attempt slot, counted inside the kernel.
+
 Deliberately dependency-light at import time: this package is imported
 by ``fleet/engine.py`` and ``sim/engine.py``, so nothing here may import
 them back at module scope (the CLI imports the engines lazily).

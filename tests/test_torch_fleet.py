@@ -34,6 +34,7 @@ from repro_torch.fleet import FleetParams, SweepConfig, fleet_run
 from repro_torch.fleet import make_fleet, run_sweep
 from repro_torch.fleet.metrics import conservation_residual
 from repro_torch.kernels.placement import placement as placement_t
+from repro_torch.obs import profile
 
 PER_SCENARIO = 2
 SCENARIOS = scenario_names()
@@ -175,6 +176,35 @@ def test_run_sweep_summary_matches():
     assert got == ref
     for cell in ref["_sweep"]["cells"]:
         assert got[cell]["conservation_residual"]["max_abs"] == 0
+
+
+@pytest.mark.parametrize("R", [4, 0])
+@pytest.mark.parametrize("seed", [3, 5])
+def test_placement_counters_match_the_stats(R, seed):
+    """Under a device-timed timer the plain route counts every
+    ``fused_place`` call's rows attempted and committed by slot (0 the
+    re-queue pass, 1 + d device d's victim re-placement, 5 + 4d + k its
+    LP attempt k): the commits are the completions, less the revoked
+    ones, which are the preemptions; the LP slots' attempts are the LP
+    tasks spawned; the re-placement slots' attempts the preemptions."""
+    values, bw = _population(F, seed=seed)
+    with profile.PhaseTimer(device_time=True) as t:
+        _, stats = fleet_run(make_fleet(B, requeue_slots=R, device="cpu"),
+                             values, bw, params=_params(FleetParams, R))
+    counts = np.array(t.counters()["fleet/fused_place"])
+    total = {k: int(getattr(stats, k).sum()) for k in (
+        "lp_completed", "hp_preempted", "lp_spawned")}
+    assert counts.shape == (21, 2)
+    assert counts[5:, 0].sum() == total["lp_spawned"] > 0
+    if R:
+        assert counts[:, 1].sum() == (total["lp_completed"]
+                                      + total["hp_preempted"])
+        assert counts[1:5, 0].sum() == total["hp_preempted"] > 0
+    else:
+        # no re-queue: nothing is re-placed and no completion is revoked
+        assert counts[:, 1].sum() == total["lp_completed"]
+        assert not counts[:5].any()
+    assert (counts[:, 1] <= counts[:, 0]).all()
 
 
 def test_kernel_is_not_launched_on_cpu(runs):

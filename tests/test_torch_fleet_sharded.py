@@ -39,6 +39,7 @@ from repro_torch.fleet import (
 )
 from repro_torch.fleet.state import fleet_shape, track_counts
 from repro_torch.kernels.placement import placement as placement_t
+from repro_torch.obs import profile
 
 B, F, DEV = 16, 8, 4
 B_ODD = 13                      # pads to 14 on 2 shards, 15 on 3
@@ -150,6 +151,23 @@ def test_sanitize_composes_with_sharding(monkeypatch, reference, shards):
     monkeypatch.setenv(sanitize.ENV_VAR, "1")
     st, stats = _run(dataclasses.replace(PARAMS, mesh_shards=shards), _wl())
     _assert_same(reference, _leaves(st, stats))
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+def test_sharded_spans_and_counters(reference_odd, shards):
+    """Under a device-timed timer the sharded run stays bit-identical,
+    each shard's tick is a span of its own, and the shards' placement
+    counters sum to the unsharded run's (padded replicas attempt
+    nothing)."""
+    wl = _wl(B_ODD, seed=7, scenario="weighted2")
+    with profile.PhaseTimer(device_time=True) as one:
+        _run(PARAMS, wl, batch=B_ODD)
+    with profile.PhaseTimer(device_time=True) as split:
+        st, stats = _run(_params(FleetParams, mesh_shards=shards), wl,
+                         batch=B_ODD)
+    _assert_same(reference_odd[0], _leaves(st, stats))
+    assert split.counters() == one.counters()
+    assert split.summary()["fleet/tick"]["count"] == F * shards
 
 
 def test_sanitize_trips_on_a_corrupt_shard(monkeypatch):

@@ -522,16 +522,154 @@ def test_phase_timer_spans_and_save(tmp_path):
     assert json.load(open(path)) == payload and payload["note"] == 1
 
 
+#: spans of a B x F run on DEV devices: a tick, and in each tick the
+#: re-queue pass and each device's victim re-placement, HP and LP phases,
+#: and a compaction every 8th tick
+SPAN_COUNTS = {"fleet/tick": F, "fleet/requeue": F * (1 + DEV),
+               "fleet/hp": F * DEV, "fleet/lp": F * DEV,
+               "fleet/compaction": F // 8}
+
+
 @pytest.mark.parametrize("seg,segments", [(0, 1), (3, 3), (5, 2)])
 def test_fleet_run_records_segment_spans(seg, segments):
+    want = {"fleet/segment": segments, **SPAN_COUNTS}
+    for params in (PARAMS, TPARAMS):
+        with profile.PhaseTimer() as t:
+            _run(dataclasses.replace(params, segment_frames=seg))
+        assert {k: v["count"] for k, v in t.summary().items()} == want
+
+
+def test_span_records_carry_name_parent_trace_and_times():
     with profile.PhaseTimer() as t:
-        _run(dataclasses.replace(PARAMS, segment_frames=seg))
-    assert t.summary()["fleet/segment"]["count"] == segments
-    assert "fleet/telemetry_host_transfer" not in t.summary()
+        with profile.span("obs/a", trace=(7, 3), device="cpu"):
+            with profile.span("obs/b"):
+                pass
+        with profile.span("obs/c"):
+            pass
+    r = t.records()
+    assert [x["name"] for x in r] == ["obs/a", "obs/b", "obs/c"]
+    assert [x["parent"] for x in r] == [None, 0, None]
+    assert [x["trace"] for x in r] == [[7, 3], [7, 3], None]
+    assert [x["device"] for x in r] == ["cpu", "cpu", None]
+    assert all(x["device_ms"] is None for x in r)
+    assert all(x["start_ns"] <= x["end_ns"] for x in r)
+    assert r[0]["start_ns"] <= r[1]["start_ns"] <= r[1]["end_ns"] \
+        <= r[0]["end_ns"] <= r[2]["start_ns"]
+
+
+def test_fleet_run_spans_form_one_tree_a_tick():
+    """Every span inside a tick carries the tick's ``(run, f)`` and lies
+    inside its parent; two runs get two run identifiers."""
     with profile.PhaseTimer() as t:
-        _run(dataclasses.replace(TPARAMS, segment_frames=seg))
-    assert t.summary()["fleet/segment"]["count"] == segments
-    assert t.summary()["fleet/telemetry_host_transfer"]["count"] == 1
+        _run(PARAMS)
+        _run(PARAMS)
+    recs = t.records()
+    ticks = [r for r in recs if r["name"] == "fleet/tick"]
+    runs = sorted({r["trace"][0] for r in ticks})
+    assert len(runs) == 2
+    assert sorted(tuple(r["trace"]) for r in ticks) == sorted(
+        (run, f) for run in runs for f in range(F))
+    for r in recs:
+        if r["parent"] is None:
+            assert r["name"] == "fleet/segment" and r["trace"] is None
+            continue
+        up = recs[r["parent"]]
+        assert up["start_ns"] <= r["start_ns"] <= r["end_ns"] <= up["end_ns"]
+        if r["name"] == "fleet/tick":
+            assert up["name"] == "fleet/segment"
+        else:
+            assert up["name"] == "fleet/tick"
+            assert r["trace"] == up["trace"] and r["device"] == "cpu"
+
+
+def test_self_time_is_span_less_children():
+    with profile.PhaseTimer() as t:
+        with profile.span("obs/a"):
+            with profile.span("obs/b"):
+                sum(range(20000))
+            sum(range(20000))
+            with profile.span("obs/b"):
+                sum(range(20000))
+    ph = t.phases()
+    r = t.records()
+    host = [(x["end_ns"] - x["start_ns"]) / 1e6 for x in r]
+    assert ph["obs/a"]["count"] == 1 and ph["obs/b"]["count"] == 2
+    assert ph["obs/a"]["host_ms"] == pytest.approx(host[0], abs=1e-9)
+    assert ph["obs/a"]["self_host_ms"] == pytest.approx(
+        host[0] - host[1] - host[2], abs=1e-9)
+    assert ph["obs/b"]["self_host_ms"] == pytest.approx(
+        ph["obs/b"]["host_ms"], abs=1e-9)
+    assert 0 < ph["obs/a"]["self_host_ms"] < ph["obs/a"]["host_ms"]
+    assert ph["obs/a"]["device_ms"] is None
+
+
+def test_spans_are_host_ops_of_a_profiler_session():
+    """Inside a ``torch.profiler`` session each span is a host ``cpu_op``
+    of its name, on the records' clock within 50 us, and never a user
+    annotation (which would give the card an event of its name)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profile.PhaseTimer() as t:
+            _run_short(PARAMS)
+    recs = t.records()
+    names = {r["name"] for r in recs}
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.name() in names]
+    assert not [e for e in events if e.is_user_annotation()]
+    assert len(events) == len(recs)
+    for name in names:
+        got = sorted((e.start_ns(), e.end_ns()) for e in events
+                     if e.name() == name)
+        want = sorted((r["start_ns"], r["end_ns"]) for r in recs
+                      if r["name"] == name)
+        for (a, b), (c, d) in zip(got, want, strict=True):
+            assert abs(a - c) <= 50_000 and abs(b - d) <= 50_000, name
+    assert all(e.activity_type() == "cpu_op" for e in events)
+
+
+@pytest.mark.parametrize("mode", ["plain", "telemetry", "sanitize"])
+def test_fleet_run_bit_identical_under_every_timer(mode, monkeypatch):
+    """No timer, a host timer and a device-timed timer (which also counts
+    the placement attempts) give the same leaves, and the same telemetry
+    record."""
+    if mode == "sanitize":
+        monkeypatch.setenv(sanitize.ENV_VAR, "1")
+    params = TPARAMS if mode == "telemetry" else PARAMS
+    want = _run(params)
+    for timer in (profile.PhaseTimer(),
+                  profile.PhaseTimer(device_time=True)):
+        with timer:
+            got = _run(params)
+        _assert_leaves_equal(_leaves(*want[:2]), _leaves(*got[:2]))
+        if mode == "telemetry":
+            _assert_records_equal(want[2], got[2])
+        assert bool(timer.counters()) == timer.device_time
+
+
+def test_counters_only_under_a_device_timed_timer():
+    assert profile.counter("obs/n", (2,), "cpu") is None
+    with profile.PhaseTimer() as host:
+        assert profile.counter("obs/n", (2,), "cpu") is None
+        with profile.PhaseTimer(device_time=True) as timed:
+            buf = profile.counter("obs/n", (2,), "cpu")
+            buf += torch.tensor([3, 1])
+            profile.counter("obs/n", (2,), "cpu").add_(1)
+    assert host.counters() == {}
+    assert timed.counters() == {"obs/n": [4, 2]}
+
+
+def test_save_writes_spans_and_counters(tmp_path):
+    with profile.PhaseTimer(device_time=True) as t:
+        _run(PARAMS)
+    path = str(tmp_path / "spans.json")
+    payload = t.save(path)
+    assert json.load(open(path)) == payload
+    assert len(payload["spans"]) == sum(SPAN_COUNTS.values()) + 1
+    counts = payload["counters"]["fleet/fused_place"]
+    assert len(counts) == 1 + DEV * 5
+    assert all(0 <= ok <= do for do, ok in counts)
 
 
 def _traces(path):
@@ -562,6 +700,22 @@ def test_profile_dir_writes_a_torch_trace(tmp_path, monkeypatch):
     _assert_leaves_equal(want, got)
     _run_short(PARAMS)
     assert len(_traces(tmp_path)) == 2
+
+
+def test_profile_dir_trace_shows_the_ticks_and_their_phases(
+        tmp_path, monkeypatch):
+    """Under a timer, the trace ``REPRO_PROFILE_DIR`` writes holds every
+    span as a host op of its name, so the timeline shows each tick and
+    its phases."""
+    monkeypatch.setenv(profile.ENV_VAR, str(tmp_path))
+    with profile.PhaseTimer() as t:
+        _run_short(PARAMS)
+    obj = load_trace(str(tmp_path / _traces(tmp_path)[0]))
+    got = [(e["name"], e.get("cat")) for e in obj["traceEvents"]
+           if e.get("name", "").startswith("fleet/")]
+    assert sorted(n for n, _ in got) == sorted(
+        r["name"] for r in t.records())
+    assert {c for _, c in got} == {"cpu_op"}
 
 
 def test_profile_hook_passes_through_another_profiler(tmp_path,

@@ -110,6 +110,19 @@ def test_adversarial_row_semantics(row):
         assert nv[i, 0, 0, 1, 0] and not nv[i, 0, 0, 1, 1:].any()
 
 
+@pytest.mark.parametrize("b", [1, 13])
+def test_plain_route_counts_rows_attempted_and_committed(b):
+    """``counts`` gets the rows attempted and committed added to it; the
+    outputs are the uncounted call's."""
+    case = cases.random_case(b, seed=4)
+    want = fused_place_ref(*_t(case))
+    counts = torch.tensor([5, 2])
+    got = fused_place_op(*_t(case), backend="ref", counts=counts)
+    _assert_same(want, got)
+    assert counts.tolist() == [5 + int(case[7].sum()),
+                               2 + int(want[3].sum())]
+
+
 def test_ref_leaves_inputs_untouched():
     tens = _t(cases.random_case(8, seed=2, do_rate=1.0))
     before = [x.clone() for x in tens]
