@@ -16,7 +16,14 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    B=8192 and at a ragged B=37, on one replica, on a ragged last block
    (B=1027), on a batch whose every row has do = false (which must
    leave the windows as they were) and on 6 devices a replica — every
-   output must be bit-identical;
+   output must be bit-identical; ``fanout_commit`` (the fleet's HP
+   commit) the same way on seeded random rows plus the hand-built HP
+   rows, at B=8192 (on devices 0 and 3), at the benchmark's B=524,288,
+   at B=37, 1, 1027, an all-do-false 1027 and 6 devices: every output
+   and window bit-identical to ``tensor_state.fanout_commit``, the
+   windows updated in place, do = false rows byte-identical, the
+   counter's rows committed ``do.sum()`` and rows changed the plain
+   version's;
    ``flash_attention`` on seeded N(0,1) inputs at the waste pipeline's
    shapes (S 173 and 233, bf16 and f32), a qwen2.5-3b and a gemma2-2b local
    and global layer, a zamba2-7b layer (hd 112), a moonshot-v1-16b-a3b
@@ -38,12 +45,16 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    the kernel once and equal the plain version on the host;
 4. fleet path: ``run_sweep`` of 4 cells x 2048 seeds x 95 frames in one
    batch of 8192 replicas with ``FleetParams()`` defaults; a tick must
-   launch the placement kernel 21 times and the window-query kernel 4 times
-   (the HP query of each device, every one on the vector route), and no LP
-   task may be lost;
+   launch the placement kernel 21 times, the window-query kernel 4 times
+   (the HP query of each device, every one on the vector route) and the
+   fan-out commit kernel 4 times (each device's HP commit), and no LP task
+   may be lost;
 5. plain fleet path: the same batch through ``placement_backend="ref"``,
-   which launches neither kernel, must give bit-identical counters and
-   final state, and the same cell summaries;
+   which launches none of the three kernels, must give bit-identical
+   counters and final state, and the same cell summaries; then both
+   routes again (``"kernel"`` and ``"ref"``) under device-timed timers:
+   state, stats and the ``fleet/hp_commit`` counters identical, the
+   counted commits the stats' ``hp_completed``;
 6. serving path: ``serve`` of 40 frame periods of the full waste-pipeline
    config through the RAS scheduler and the WPS baseline; the attention
    kernel must launch once per layer of every forward pass, on its wgmma
@@ -97,7 +108,8 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    attention, decode, scan and window-query kernels; ``fused_place``'s
    device time cold (L2 flushed by a 64 MB write, the time held to the HBM
    bound) and warm (windows in L2, as the fleet meets them), and a
-   near-empty launch's device time;
+   near-empty launch's device time; ``fanout_commit``'s cold and warm at
+   B=524,288 with every row committing, beside its byte bound;
    the window-query kernels' device time a launch cold (L2 flushed) and
    warm at every case, held to their byte bound, and the host's cost of
    one call of the fleet's HP query, split into the wrapper's parts; the
@@ -116,8 +128,8 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    congestion 0 and 0.3 (each run timed); then the committed grid of
    ``results/calib/baseline.json`` (5 paper traces x congestion 0 and 0.3
    x 3 seeds x 95 frames) through ``run_calibration`` on the card: every
-   point launches the placement kernel 21 times and the window-query
-   kernel 4 times a tick, the report must pass the committed bands and
+   point launches the placement kernel 21 times and the window-query and
+   fan-out commit kernels 4 times each a tick, the report must pass the committed bands and
    equal, key by key, the plain path's (``placement_backend="ref"``,
    which launches neither); each fleet point timed alone, one profiled;
 17. sanitize: the fleet path's 8192 replicas for 10 ticks with
@@ -127,7 +139,7 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    ``SanitizeError`` naming the window order, and the run goes on;
 18. telemetry: the fleet path's 8192 replicas for 95 ticks with
    ``telemetry`` off, on, on, off (ms a tick each), bit-identical to the
-   main fleet run with 21 + 4 launches a tick; the record's 17 series
+   main fleet run with 21 + 4 + 4 launches a tick; the record's 17 series
    equal bit for bit to the plain path's and to a stride-5 record's
    rows, the ``*_d`` series summing to the final counters, the ``.npz``
    round trip and the Chrome trace of replicas 0 and 8191 valid;
@@ -135,16 +147,18 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    segment and the tick's phase spans, with telemetry off and on; a
    device-timed one gives each tick's device time and ``fused_place``'s
    counters, whose commits are the stats' ``lp_completed +
-   hp_preempted``, at the same launches; with ``REPRO_PROFILE_DIR`` set
+   hp_preempted``, and ``fanout_commit``'s, whose commits are the stats'
+   ``hp_completed``, at the same launches; with ``REPRO_PROFILE_DIR`` set
    a 5-tick run writes one ``torch.profiler`` trace naming
-   ``fused_place_kernel`` and ``window_query_kernel``; under
+   ``fused_place_kernel``, ``fanout_commit_kernel`` and
+   ``window_query_kernel``; under
    ``profile_device`` it still runs and writes nothing;
 20. obs CLI: ``repro_torch.obs.cli.main`` records B 8 x 95 frames of
    weighted2 at 0.3 on the card (equal bit for bit to the host's) and
    the serial DES, exports and summarises both; the traces valid;
 21. sharded: ``run_sweep(mesh_shards=1)`` of the fleet cell, in one
    batch and in batches of 3000 (a tail of owners -1), within 1e-5 of
-   the unsharded sweep with residual 0 and 21 + 4 launches a tick;
+   the unsharded sweep with residual 0 and 21 + 4 + 4 launches a tick;
    ``mesh_shards=2`` raises on one card; the per-cell reduction's time
    and the bytes a batch copies to the host;
 22. train: ``launch.train.train`` of the full qwen2.5-3b (36 layers, 3.1 B
@@ -263,6 +277,8 @@ B_MAIN = 8192
 N_FRAMES = 95
 FUSED_PER_TICK = 21               # 1 re-queue + 4 devices x (1 + 4)
 HP_QUERIES_PER_TICK = 4           # one window query a device
+HP_COMMITS_PER_TICK = 4           # one fan-out commit a device
+HP_COMMIT_B = 524288              # the benchmark's fleet batch
 #: f32 instructions a second: 67 TFLOP/s counts an FMA as two operations;
 #: an FMA, a multiply or an add is one instruction
 FP32_INSTR_PER_S = FP32_OPS_PER_S / 2
@@ -886,6 +902,224 @@ def time_fused_place(dev, case=None) -> dict:
     return row
 
 
+def big_hp_case(B: int, seed: int, dev: int = 0, do_rate: float = 0.8):
+    """A ``fanout_commit`` case of ``B`` rows made cheaply at any size: the
+    windows of ``random_hp_case(B_MAIN)`` tiled to B rows, a slot and a
+    ``do`` drawn for every row, the hand-built HP rows of device ``dev``
+    first."""
+    import numpy as np
+
+    from repro_torch.kernels.placement import cases
+
+    small = cases.random_hp_case(B_MAIN, seed=seed)
+    reps = -(-B // B_MAIN)
+    t1, t2, valid, md = (np.concatenate([x] * reps)[:B] for x in small[:4])
+    rng = np.random.default_rng(seed + 2000)
+    s = rng.uniform(0, 60, B).astype(np.float32)
+    e = (s + rng.uniform(0.5, 10, B)).astype(np.float32)
+    do = rng.random(B) < do_rate
+    return cases.with_hp_adversarial_rows((t1, t2, valid, md, s, e, do), dev)
+
+
+def fanout_commit_cases():
+    """(name, case, device committed on) of the ``fanout_commit`` checks:
+    the fleet's B and the benchmark's B 524,288 with the hand-built HP rows
+    first, a ragged batch, one replica, a ragged last block of 3 warps, a
+    batch whose every row has do = false, and 6 devices."""
+    from repro_torch.kernels.placement import cases
+
+    adv = cases.with_hp_adversarial_rows
+    off = adv(cases.random_hp_case(8 * 128 + 3, seed=14), 2)
+    off[6][:] = False
+    return [("fleet-8192", adv(cases.random_hp_case(B_MAIN, seed=10), 0), 0),
+            ("fleet-8192-dev3", adv(cases.random_hp_case(B_MAIN, seed=11),
+                                    3), 3),
+            ("bench-524288", big_hp_case(HP_COMMIT_B, seed=17, dev=1), 1),
+            ("ragged-37", adv(cases.random_hp_case(37, seed=12), 1), 1),
+            ("one-replica", cases.random_hp_case(1, seed=13, do_rate=1.0),
+             2),
+            ("ragged-1027", adv(cases.random_hp_case(8 * 128 + 3, seed=15),
+                                2), 2),
+            ("all-do-false-1027", off, 2),
+            ("six-devices-37", cases.random_hp_case(37, seed=16, dev=6), 5)]
+
+
+def plain_fanout_commit(xs, d):
+    """The plain version's first four outputs on a case's card tensors,
+    committing on device ``d`` for an HP task."""
+    from repro_torch.core.tensor_state import fanout_commit
+    from repro_torch.kernels.placement.cases import HP
+
+    full = lambda x: torch.full(xs[4].shape, x, dtype=torch.int32,
+                                device=xs[4].device)
+    return fanout_commit(*xs[:4], full(d), full(HP), *xs[4:])[:4]
+
+
+def changed_slots(before, after):
+    """Per row, whether any window entry's bits changed, and how many t1,
+    t2 and valid entries changed in all."""
+    rows = torch.zeros(before[0].shape[0], dtype=torch.bool,
+                       device=before[0].device)
+    n = []
+    for a, b in zip(before[:3], after[:3]):
+        diff = ~torch.eq(a.view(torch.int32) if a.is_floating_point() else a,
+                         b.view(torch.int32) if b.is_floating_point() else b)
+        rows |= diff.flatten(1).any(1)
+        n.append(int(diff.sum()))
+    return rows, n
+
+
+def check_fanout_commit(dev) -> float:
+    """Phase 3 for ``fanout_commit``: every output and every window bit for
+    bit against the plain version at each of ``fanout_commit_cases``; the
+    windows of do = false rows byte-identical to the input; the counter's
+    rows committed equal to ``do.sum()`` and its rows changed to the
+    plain version's. Returns the largest absolute difference (0)."""
+    from repro_torch.kernels.placement import placement
+    from repro_torch.kernels.placement.cases import HP
+
+    err = 0.0
+    for name, case, d in fanout_commit_cases():
+        xs = to_card(case, dev)
+        ref = plain_fanout_commit(xs, d)
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        mine = to_card(case, dev)
+        ker = placement.fanout_commit(*mine[:4], d, HP, *mine[4:],
+                                      counts=counts)
+        torch.cuda.synchronize()
+        same = [bit_equal(r, k) for r, k in zip(ref, ker)]
+        in_place = all(k.data_ptr() == m.data_ptr()
+                       for k, m in zip(ker[:3], mine[:3]))
+        off = ~xs[6]
+        kept = [bit_equal(k[off], x[off]) for k, x in zip(ker[:3], xs[:3])]
+        changed, n_changed = changed_slots(xs, ref)
+        want_counts = [int(xs[6].sum()), int(changed.sum())]
+        err = max(err, max_abs_err(ref, ker))
+        emit({"phase": "kernel", "kernel": "fanout_commit", "case": name,
+              "B": len(case[4]), "device": d,
+              "outputs_bit_identical": same, "in_place": in_place,
+              "do_false_rows_kept": kept, "max_abs_err": err,
+              "dropped": int(ref[3].sum()),
+              "entries_changed_t1_t2_valid": n_changed,
+              "counts": counts.tolist(), "counts_want": want_counts})
+        check(all(same), f"fanout_commit differs from its plain version "
+                         f"in case {name}: {same}")
+        check(in_place, f"fanout_commit returned new windows in {name}")
+        check(all(kept), f"fanout_commit wrote a do = false row in case "
+                         f"{name}: {kept}")
+        check(counts.tolist() == want_counts,
+              f"fanout_commit counted {counts.tolist()} rows committed and "
+              f"changed in case {name}, not {want_counts}")
+        del xs, ref, mine, ker
+    torch.cuda.empty_cache()
+    return err
+
+
+def time_fanout_commit(dev, case=None, d: int = 1) -> dict:
+    """Phase 13 for ``fanout_commit`` at the benchmark's B 524,288 (or on
+    ``case``, committing on device ``d``), every row committing: its device
+    time a launch cold (L2 flushed by a 64 MB write after the windows'
+    reset) and warm (right after the reset), the plain version's time and
+    the byte bound. A committing row reads its device's three lists and
+    its slot, ``min_dur`` and ``do``, and writes back the entries the
+    commit changed; every row reads ``do`` and writes ``n_dropped``.
+    ``bound_ms`` counts the entries that changed, ``bound_all_written_ms``
+    all 864 bytes of every committing row."""
+    from repro_torch.kernels.placement import placement
+    from repro_torch.kernels.placement.cases import HP
+
+    if case is None:
+        case = big_hp_case(HP_COMMIT_B, seed=18, dev=d, do_rate=1.0)
+    pristine = to_card(case, dev)
+    work = [x.clone() for x in pristine]
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=dev)
+
+    def reset():
+        for w, p in zip(work[:3], pristine[:3]):
+            w.copy_(p)
+
+    def warm():
+        reset()
+        placement.fanout_commit(*work[:4], d, HP, *work[4:])
+
+    def cold():
+        reset()
+        flush.zero_()
+        placement.fanout_commit(*work[:4], d, HP, *work[4:])
+
+    cold_ms, cold_seen = device_ms(cold, "fanout_commit_kernel")
+    warm_ms, warm_seen = device_ms(warm, "fanout_commit_kernel")
+    del flush
+    plain_ms = cuda_ms(lambda: plain_fanout_commit(pristine, d), 3)
+    ref = plain_fanout_commit(pristine, d)
+    _, (n1, n2, nv) = changed_slots(pristine, ref)
+    B, n_dev, n_cfg, T, W = case[0].shape
+    n_do = int(case[6].sum())
+    lists = n_cfg * T * W * (4 + 4 + 1)          # the device's 3 lists
+    read = n_do * (lists + n_cfg * 4 + 4 + 4) + B * 1
+    written = n1 * 4 + n2 * 4 + nv + B * 4
+    bound_ms = 1e3 * (read + written) / HBM_BYTES_PER_S
+    all_ms = 1e3 * (read + n_do * lists + B * 4) / HBM_BYTES_PER_S
+    row = {"ms": cold_ms, "ms_warm": warm_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
+    emit({"phase": "timing", "kernel": "fanout_commit", "B": B,
+          "committing_rows": n_do, **row,
+          "device_events": {"cold": cold_seen, "warm": warm_seen},
+          "bytes": read + written, "entries_changed_t1_t2_valid":
+              [n1, n2, nv], "bound_all_written_ms": all_ms,
+          "cold_share_of_bound": bound_ms / cold_ms,
+          "warm_share_of_bound": bound_ms / warm_ms,
+          "cold_gb_per_s": (read + written) / cold_ms / 1e6,
+          "plain_over_kernel": plain_ms / cold_ms})
+    del pristine, work, ref
+    torch.cuda.empty_cache()
+    return row
+
+
+def hp_commit_phase(dev, values, bw) -> dict:
+    """Phase 5b: the B 8,192 fleet through ``placement_backend="kernel"``
+    and ``"ref"``, each under a device-timed timer: state and stats
+    bit-identical, the HP commit counters equal, their rows committed the
+    stats' ``hp_completed``; the kernel route launches ``fanout_commit``
+    4 times a tick, the plain one nothing."""
+    from repro_torch.fleet import FleetParams, fleet_run, make_fleet
+    from repro_torch.obs import PhaseTimer
+
+    F = values.shape[0]
+    runs = {}
+    for backend in ("kernel", "ref"):
+        reset_counts()
+        with PhaseTimer(device_time=True) as timer:
+            t0 = time.perf_counter()
+            state, stats = fleet_run(
+                make_fleet(B_MAIN, device=dev), values, bw,
+                params=FleetParams(placement_backend=backend))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[backend] = (fleet_leaves(state, stats),
+                         timer.counters()["fleet/hp_commit"],
+                         nonzero_counts(), int(stats.hp_completed.sum()),
+                         wall, timer.phases()["fleet/hp"]["device_ms"])
+    (lk, ck, nk, hk, wk, dk), (lr, cr, nr, hr, wr, dr) = (
+        runs["kernel"], runs["ref"])
+    diff = differing_leaves(lr, lk)
+    committed = sum(c for c, _ in ck)
+    emit({"phase": "hp_commit_fleet", "replicas": B_MAIN, "frames": F,
+          "differing": diff, "hp_commit_counters": {"kernel": ck,
+                                                    "ref": cr},
+          "hp_completed": hk, "launches": {"kernel": nk, "ref": nr},
+          "seconds": {"kernel": wk, "ref": wr},
+          "hp_span_device_ms": {"kernel": dk, "ref": dr}})
+    check(not diff, f"kernel and plain fleet runs differ in {diff}")
+    check(ck == cr, f"HP commit counters differ: {ck} / {cr}")
+    check(committed == hk == hr,
+          f"the HP commits counted {committed}, the stats {hk} / {hr}")
+    check(nk == fleet_launches(F) and nr == {},
+          f"fleet launches by backend: {nk} / {nr}")
+    return nk
+
+
 def check_new_kernels(dev):
     """Phase 3, the three kernels of the SSM and hybrid paths (and the hd 112
     attention, in ``ATTN_CASES``) against their plain versions on the card.
@@ -974,6 +1208,7 @@ def counters() -> dict:
     from repro_torch.kernels.window_query import window_query as wq
 
     return {"fused_place": (placement, "launches"),
+            "fanout_commit": (placement, "launches_fanout_commit"),
             "flash_attention": (fa, "launches"),
             "flash_attention_wgmma": (fa, "launches_wgmma"),
             "flash_attention_simt": (fa, "launches_simt"),
@@ -1857,9 +2092,10 @@ def fixture_phase(dev):
 
 def fleet_launches(n_frames: int) -> dict:
     """The nonzero launch counters of a fleet run of ``n_frames`` ticks
-    through the kernels: 21 placements and 4 HP queries a tick, every HP
-    query on the vector route."""
+    through the kernels: 21 placements, 4 HP queries and 4 HP commits a
+    tick, every HP query on the vector route."""
     return {"fused_place": FUSED_PER_TICK * n_frames,
+            "fanout_commit": HP_COMMITS_PER_TICK * n_frames,
             "window_query_batched": HP_QUERIES_PER_TICK * n_frames,
             "window_query_vec": HP_QUERIES_PER_TICK * n_frames}
 
@@ -2254,9 +2490,9 @@ def profile_phase(dev, values, bw):
     counts one ``fleet/segment`` span a segment and the tick's phase
     spans, with telemetry off and on; a device-timed timer times every
     span on the card and counts ``fused_place``'s rows attempted and
-    committed, at the same launches; with ``REPRO_PROFILE_DIR`` set a
-    5-tick run writes one ``torch.profiler`` trace naming both fleet
-    kernels; under ``profile_device``'s own profiler the hook passes
+    committed and ``fanout_commit``'s rows committed, at the same launches;
+    with ``REPRO_PROFILE_DIR`` set a 5-tick run writes one
+    ``torch.profiler`` trace naming the three fleet kernels; under ``profile_device``'s own profiler the hook passes
     through and the run still works."""
     from repro_torch.fleet import FleetParams, fleet_run, make_fleet
     from repro_torch.obs import PhaseTimer, profile
@@ -2282,6 +2518,8 @@ def profile_phase(dev, values, bw):
     phases = timed.phases()
     counters = timed.counters()["fleet/fused_place"]
     commits = int(stats.lp_completed.sum() + stats.hp_preempted.sum())
+    hp_counters = timed.counters()["fleet/hp_commit"]
+    hp_commits = int(stats.hp_completed.sum())
 
     trace_dir = OBS_DIR / "torch_trace"
     if trace_dir.exists():
@@ -2315,11 +2553,14 @@ def profile_phase(dev, values, bw):
         else:
             os.environ[profile.ENV_VAR] = saved
     kernels = {k: any(k in n for n in names)
-               for k in ("fused_place_kernel", "window_query_kernel")}
+               for k in ("fused_place_kernel", "fanout_commit_kernel",
+                         "window_query_kernel")}
     emit({"phase": "profile", "replicas": B_MAIN, "frames": F,
           "spans_off": spans["off"], "spans_on": spans["on"],
           "device_timed": {"phases": phases, "counters": counters,
                            "commits": commits,
+                           "hp_commit_counters": hp_counters,
+                           "hp_completed": hp_commits,
                            "launches": timed_counts},
           "segments": n_seg, "trace_files": [f.name for f in files],
           "trace_bytes": files[0].stat().st_size if files else None,
@@ -2343,6 +2584,9 @@ def profile_phase(dev, values, bw):
           f"spans without device time: {phases}")
     check(sum(ok for _, ok in counters) == commits,
           f"fused_place counted {counters}, the stats {commits} commits")
+    check(sum(do for do, _ in hp_counters) == hp_commits,
+          f"fanout_commit counted {hp_counters}, the stats {hp_commits} "
+          f"HP commits")
     check(timed_counts == fleet_launches(F),
           f"the device-timed run launched {timed_counts}")
     check(len(files) == 1, f"REPRO_PROFILE_DIR wrote {len(files)} traces")
@@ -2430,7 +2674,7 @@ def sharded_phase(dev, summary, sweep, stats, state, owners):
     fleet cell equals the unsharded sweep (cell means within 1e-5,
     replicas exact, residual 0), also in batches of SWEEP_TAIL_BATCH
     (the last batch's tail has owners -1); ``mesh_shards=2`` raises on
-    one card; 21 + 4 launches a tick; and the per-cell reduction of one
+    one card; 21 + 4 + 4 launches a tick; and the per-cell reduction of one
     batch on the card: its time and the bytes it copies to the host."""
     from repro_torch.fleet import (
         SweepConfig, cell_moments, merge_cell_moments, run_sweep,
@@ -3846,6 +4090,7 @@ def main() -> None:
           "nvcc": {k: v.splitlines() for k, v in logs.items()}})
     # a library taken from an earlier build has no log to report
     ptxas = ptxas_report(logs, ("fused_place_kernel",
+                                "fanout_commit_kernel",
                                 "flash_attention_wgmma_kernel",
                                 "flash_decode_split_kernel",
                                 "flash_decode_combine_kernel",
@@ -3862,12 +4107,13 @@ def main() -> None:
     serialized = [r["kernel"] for r in ptxas if r["wgmma_serialized"]]
     check(not serialized, f"ptxas serialized the wgmmas of {serialized}")
     spilled = [r["kernel"] for r in ptxas if r["kernel"].startswith(
-        ("fused_place", "window_query")) and (r.get("spill_stores")
-                                              or r.get("spill_loads"))]
+        ("fused_place", "fanout_commit", "window_query")) and (
+            r.get("spill_stores") or r.get("spill_loads"))]
     check(not spilled, f"ptxas spilled registers of {spilled}")
 
     # -- 3. kernel against its plain version ---------------------------------
     kernel_err = check_fused_place(dev)
+    fanout_err = check_fanout_commit(dev)
 
     attn_err = {}
     for i, c in enumerate(ATTN_CASES):
@@ -3918,6 +4164,7 @@ def main() -> None:
     wall = time.perf_counter() - t0
     fleet_counts = counts()
     launches = fleet_counts["fused_place"]
+    hp_commits = fleet_counts["fanout_commit"]
     hp_queries = fleet_counts["window_query_batched"]
     hp_vec = fleet_counts["window_query_vec"]
     cells = summary["_sweep"]["cells"]
@@ -3929,6 +4176,7 @@ def main() -> None:
           "replicas_per_s": B_MAIN / wall,
           "replica_frames_per_s": B_MAIN * N_FRAMES / wall,
           "fused_place_launches": launches,
+          "fanout_commit_launches": hp_commits,
           "window_query_batched_launches": hp_queries,
           "window_query_vec_launches": hp_vec,
           "frame_completion_rate": {
@@ -3937,6 +4185,9 @@ def main() -> None:
     check(launches == FUSED_PER_TICK * N_FRAMES,
           f"fused_place launched {launches} times, not "
           f"{FUSED_PER_TICK * N_FRAMES}")
+    check(hp_commits == HP_COMMITS_PER_TICK * N_FRAMES,
+          f"fanout_commit launched {hp_commits} times, not "
+          f"{HP_COMMITS_PER_TICK * N_FRAMES}")
     check(hp_queries == HP_QUERIES_PER_TICK * N_FRAMES,
           f"window_query_batched launched {hp_queries} times, not "
           f"{HP_QUERIES_PER_TICK * N_FRAMES}")
@@ -3982,6 +4233,7 @@ def main() -> None:
           f"fleet launches by backend: {run_counts}")
     check(not diff, f"kernel and plain main paths differ in {diff}")
     check(same_summary, "plain-path summaries differ from run_sweep's")
+    hp_commit_launches = hp_commit_phase(dev, values, bw)
 
     # -- 6. the serving path -----------------------------------------------
     import dataclasses
@@ -4111,6 +4363,7 @@ def main() -> None:
 
     # -- 13. timing -----------------------------------------------------------
     place_row = time_fused_place(dev)
+    fanout_row = time_fanout_commit(dev)
 
     attn_rows = []
     for i, c in enumerate(ATTN_CASES):
@@ -4259,6 +4512,24 @@ def main() -> None:
         "max_abs_err": kernel_err,
         "case": "fleet-8192",
         **place_row,
+    }, {
+        "name": "fanout_commit",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/placement/csrc/placement.cu",
+        "replaces": "src/repro_torch/core/tensor_state.py::fanout_commit "
+                    "in the fleet (plain PyTorch; the JAX package's HP "
+                    "commit is jnp, not a Pallas kernel)",
+        "launches": hp_commits + hp_commit_launches["fanout_commit"] + sum(
+            fleet_counts_by_path("fanout_commit").values()),
+        "launches_by_path": {
+            "fleet run_sweep": hp_commits,
+            "fleet kernel route against plain":
+                hp_commit_launches["fanout_commit"],
+            **fleet_counts_by_path("fanout_commit")},
+        "matched": True,
+        "max_abs_err": fanout_err,
+        "case": "bench-524288",
+        **fanout_row,
     }, {
         "name": "flash_attention",
         "route": "cuda",

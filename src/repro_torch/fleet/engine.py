@@ -14,17 +14,18 @@ Every placement attempt is one call of ``fused_place_op``: on CUDA tensors
 one launch of the CUDA fused placement kernel for the whole fleet, 21 a
 tick with the re-queue buffer on (1 + 4·(1 + 4)), whatever the data, since
 each attempt is masked per replica and never skipped. Each device's HP
-query is one call of ``window_query_batched_op``, 4 launches of the CUDA
-window-query kernel a tick: 25 launches a tick in all. The HP commit,
-compaction and the bookkeeping are plain PyTorch.
+query is one call of ``window_query_batched_op``, and its HP commit one
+call of ``fanout_commit_op`` (the CUDA fan-out commit kernel, in place):
+4 launches of each a tick, 29 kernel launches a tick in all. Compaction
+and the bookkeeping are plain PyTorch.
 
 With ``telemetry`` on, each kept tick also captures the series of
 ``obs/telemetry.py`` from the end-of-tick carry (read-only, ~120 small
 ops); with ``mesh_shards >= 1`` the batch is split across devices
 (``fleet/mesh.py``) and the shards advance tick by tick in turn. Under
 an active ``obs/profile.py`` timer each tick and its phases run in spans,
-and a device-timed timer also gets ``fused_place``'s attempt counters
-(``fleet_run``).
+and a device-timed timer also gets ``fused_place``'s attempt counters and
+the HP commit's counters (``fleet_run``).
 
 Every expression keeps the JAX package's operand order and dtypes, so a
 CPU run reproduces it bit for bit. Three rules make that hold:
@@ -50,12 +51,12 @@ import torch
 from repro_torch.analysis import sanitize as _sanitize
 from repro_torch.core.tasks import FRAME_PERIOD, MAX_IMAGE_BYTES
 from repro_torch.core.tensor_state import (
-    BIG, SchedState, compact_state, fanout_commit,
+    BIG, SchedState, compact_state,
 )
 from repro_torch.fleet import mesh as _mesh
 from repro_torch.fleet.metrics import init_stats
 from repro_torch.fleet.state import FleetState
-from repro_torch.kernels.placement.ops import fused_place_op
+from repro_torch.kernels.placement.ops import fanout_commit_op, fused_place_op
 from repro_torch.kernels.window_query.ops import window_query_batched_op
 from repro_torch.obs import profile as _profile
 from repro_torch.obs import telemetry as _telemetry
@@ -74,8 +75,9 @@ class FleetParams:
     hp_deadline: float = 3.0
     lp_deadline_factor: float = 1.2
     stagger: float = 1.0
-    #: backend of both fleet kernels, fused_place_op and the HP query's
-    #: window_query_batched_op: "auto" | "kernel" | "ref".
+    #: backend of the fleet's kernels, fused_place_op, the HP query's
+    #: window_query_batched_op and the HP commit's fanout_commit_op:
+    #: "auto" | "kernel" | "ref".
     placement_backend: str = "auto"
     #: the Pallas kernel's replica tile; the CUDA kernel's block is fixed
     #: at 128 replicas and does not read it.
@@ -139,15 +141,17 @@ def _hp_query(st: SchedState, dev: int, now, dur, deadline,
     return found[:, 0].bool(), start[:, 0]
 
 
-def _hp_commit(st: SchedState, dev: int, s, e, do):
-    """§IV.A.1 fan-out commit of an HP slot on device `dev`, per replica.
+def _hp_commit(st: SchedState, dev: int, s, e, do, backend: str = "auto",
+               counts=None):
+    """§IV.A.1 fan-out commit of an HP slot on device `dev`, per replica,
+    through ``fanout_commit_op`` (on CUDA tensors one launch of the fan-out
+    commit kernel, in place). ``counts``, device ``dev``'s row of the
+    [Dev, 2] HP commit counters or None, gets the rows committed and the
+    rows whose windows changed added to it.
     Returns (state', n_dropped[B])."""
-    B = s.shape[0]
-    t1, t2, valid, n_drop, _ = fanout_commit(
-        st.win_t1, st.win_t2, st.win_valid, st.min_dur,
-        torch.full((B,), dev, dtype=torch.int32, device=s.device),
-        torch.full((B,), HP_IDX, dtype=torch.int32, device=s.device),
-        s, e, do,
+    t1, t2, valid, n_drop = fanout_commit_op(
+        st.win_t1, st.win_t2, st.win_valid, st.min_dur, dev, HP_IDX,
+        s, e, do, backend=backend, counts=counts,
     )
     return st._replace(win_t1=t1, win_t2=t2, win_valid=valid), n_drop
 
@@ -194,14 +198,16 @@ def _i32(x):
 
 
 def _frame_step(carry, f: int, v, bws, p: FleetParams,
-                capture: bool = False, counts=None):
+                capture: bool = False, counts=None, hp_counts=None):
     """Advance every replica by one frame tick ``f`` (a host int); ``v`` is
     the [B, Dev] workload of the tick, ``bws`` the [B] bandwidth scale.
     ``counts`` (or None) is the [1 + Dev·(1 + MAX_LP), 2] buffer of
     ``fused_place``'s rows attempted and committed per attempt slot: 0 the
     re-queue pass, 1 + d device d's victim re-placement, 1 + Dev + d·MAX_LP
-    + k its LP attempt k. Returns the new carry and, with ``capture``, the
-    tick's ``TelemetryFrame`` (else None).
+    + k its LP attempt k; ``hp_counts`` (or None) the [Dev, 2] buffer of
+    each device's HP commits: rows committed, rows whose windows changed.
+    Returns the new carry and, with ``capture``, the tick's
+    ``TelemetryFrame`` (else None).
 
     The phases run in spans (``obs/profile.py``) inside the caller's
     ``fleet/tick``: ``fleet/compaction``, ``fleet/requeue`` (the pass at
@@ -314,7 +320,10 @@ def _frame_step(carry, f: int, v, bws, p: FleetParams,
             # where nothing was found hp_start is the query's BIG; it is
             # replaced here, before any use
             hp_start = torch.where(hp_found, hp_start, now)
-            st, nd = _hp_commit(st, d, hp_start, hp_start + hp_dur, hp_ok)
+            st, nd = _hp_commit(
+                st, d, hp_start, hp_start + hp_dur, hp_ok,
+                p.placement_backend,
+                None if hp_counts is None else hp_counts[d])
             stats = stats._replace(
                 remainders_dropped=stats.remainders_dropped + nd
             )
@@ -511,7 +520,10 @@ def fleet_run(fleet: FleetState, values, bw_scale, *, params: FleetParams):
     adds its rows attempted and committed to the counter
     ``fleet/fused_place`` ([1 + Dev·(1 + MAX_LP), 2], one row an attempt
     slot, as ``_frame_step`` numbers them) inside the kernel: no launch of
-    its own. Results are bit-identical with and without a timer.
+    its own; every HP commit adds its rows committed and rows whose windows
+    changed to row ``d`` of the counter ``fleet/hp_commit`` ([Dev, 2]), in
+    the fan-out commit kernel the same way. Results are bit-identical with
+    and without a timer.
     """
     p = params
     device = fleet.link_free.device
@@ -569,12 +581,14 @@ def fleet_run(fleet: FleetState, values, bw_scale, *, params: FleetParams):
     sanitize = _sanitize.enabled()
     segments = []
     run_id = _profile.next_run_id()
-    # each shard's device, and its attempt counter, zeroed before the loop
-    # (None without a device-timed timer)
+    # each shard's device, and its attempt and HP commit counters, zeroed
+    # before the loop (None without a device-timed timer)
     shard_devices = [carry[1].device for carry in carries]
     counts = [_profile.counter("fleet/fused_place",
                                (1 + n_dev * (1 + MAX_LP), 2), dev)
               for dev in shard_devices]
+    hp_counts = [_profile.counter("fleet/hp_commit", (n_dev, 2), dev)
+                 for dev in shard_devices]
     with _profile.maybe_torch_trace():
         for f0 in range(0, F, max(S, 1)):
             with _profile.span("fleet/segment", device=device):
@@ -590,7 +604,7 @@ def fleet_run(fleet: FleetState, values, bw_scale, *, params: FleetParams):
                                            device=shard_devices[i]):
                             carries[i], frame = _frame_step(
                                 carries[i], f, v[f], bw[f], p, capture,
-                                counts[i])
+                                counts[i], hp_counts[i])
                         if sanitize:
                             _check_tick(carries[i])
                         if capture:

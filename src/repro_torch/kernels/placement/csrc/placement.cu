@@ -1,6 +1,9 @@
-// Fused LP placement attempt of the batched fleet engine, for Hopper (sm_90a).
+// Placement kernels of the batched fleet engine, for Hopper (sm_90a): the
+// fused LP placement attempt (fused_place_kernel) and the fan-out commit
+// of a given slot (fanout_commit_kernel, the fleet's HP commit), which
+// share the commit arithmetic (commit_slot).
 //
-// Replaces the TPU kernel repro/kernels/placement/placement.py::fused_place
+// fused_place_kernel replaces the TPU kernel repro/kernels/placement/placement.py::fused_place
 // (Pallas body _placement_kernel). It computes what the plain version
 // kernels/placement/ref.py::_fused_place_math computes, for every replica:
 //
@@ -77,6 +80,17 @@
 // cold (46% of the bound), 62 registers, no spills (same script and card).
 // What is left is latency: a warp's commit loads wait on its query's
 // selection.
+//
+// fanout_commit_kernel computes what core/tensor_state.py::fanout_commit
+// computes for one device `dev` and one task config `cfg` given as launch
+// arguments (the fleet commits every replica's HP slot on the same device),
+// less time_dropped, which the fleet does not read: step 3 above on every
+// row with do, in place, and n_dropped (0 on the other rows). The layout
+// is fused_place_kernel's, with no query before the commit, so a warp
+// issues its 9 loads of the three lists at once. Bound: a committing
+// row reads its device's 96 windows (864 bytes) and writes back at most as
+// many; at B = 524,288 with every row committing, 0.91 GB, 0.27 ms at
+// 3.35 TB/s.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,6 +103,75 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kMinBlocks = 4;           // blocks an SM: at most 64 registers
 constexpr int kDevChunk = 4;            // devices whose lists load together
 constexpr unsigned kFull = 0xffffffffu;
+
+// A slot of a config list after the commit.
+struct Slot {
+  float t1, t2;
+  bool valid;
+};
+
+// OCC_TABLE[cfg, li] from its 3-bit fields, row-major over (task config,
+// list config).
+__device__ __forceinline__ int occ_of(int occ_bits, int cfg, int li) {
+  return (occ_bits >> (3 * (cfg * kCfg + li))) & 7;
+}
+
+// The §IV.A.1 commit of [s, e) on one config list, for this lane's slot
+// (t, w) = (lane / W, lane % W) holding the window (a1, a2, av): the `occ`
+// tracks of largest overlap are trimmed, both remainders that satisfy md
+// are kept, the first straddle's right piece spills into the track's first
+// free slot, and every slot left invalid is reset to `big`. Returns the
+// slot's new window and adds the list's dropped pieces (the same count on
+// every lane) to n_drop. It shuffles across the warp: every lane calls it,
+// with no branch around the call. Both kernels below commit through it.
+template <int T, int W>
+__device__ __forceinline__ Slot commit_slot(float a1, float a2, bool av,
+                                            float s, float e, float md,
+                                            int occ, float big, int lane,
+                                            int& n_drop) {
+  const int t = lane / W, w = lane % W;
+  const unsigned track_bits = ((1u << W) - 1u) << (t * W);
+  const bool hit = av && a1 < e && s < a2;
+  const float part = hit ? __fsub_rn(fminf(a2, e), fmaxf(a1, s)) : 0.0f;
+  // overlap of this lane's track, summed lane 0..W-1 in order
+  float ol = 0.0f;
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+    ol = __fadd_rn(ol, __shfl_sync(kFull, part, t * W + j));
+  // descending rank by overlap, the first track wins ties
+  int rank = 0;
+#pragma unroll
+  for (int u = 0; u < T; ++u) {
+    const float olu = __shfl_sync(kFull, ol, u * W);
+    rank += (olu > ol) || (olu == ol && u < t);
+  }
+  const bool active = rank < occ && ol > 0.0f;
+
+  const bool ov = hit && active;
+  const float left_t2 = fminf(a2, s);
+  const float right_t1 = fmaxf(a1, e);
+  const bool left_ok = ov && __fsub_rn(left_t2, a1) >= md;
+  const bool right_ok = ov && __fsub_rn(a2, right_t1) >= md;
+  const bool both = left_ok && right_ok;
+  const bool nv = ov ? (left_ok || right_ok) : av;
+  const float nt1 = nv ? ((ov && !left_ok && right_ok) ? right_t1 : a1) : big;
+  const float nt2 = nv ? ((ov && left_ok) ? left_t2 : a2) : big;
+
+  const unsigned free_bits = __ballot_sync(kFull, !nv) & track_bits;
+  const unsigned both_bits = __ballot_sync(kFull, both) & track_bits;
+  const int first_free = free_bits ? __ffs(free_bits) - 1 - t * W : W;
+  const int first_both = both_bits ? __ffs(both_bits) - 1 - t * W : W;
+  const bool placed = first_both < W && first_free < W;
+  // the straddle's right piece, from lane first_both (one-hot sums in the
+  // plain version)
+  const int from = t * W + (first_both < W ? first_both : 0);
+  const float sp_t1 = __fadd_rn(0.0f, __shfl_sync(kFull, right_t1, from));
+  const float sp_t2 = __fadd_rn(0.0f, __shfl_sync(kFull, a2, from));
+  const bool dropped = both && !(placed && w == first_both);
+  n_drop += __popc(__ballot_sync(kFull, dropped));
+  const bool place = placed && w == first_free;
+  return {place ? sp_t1 : nt1, place ? sp_t2 : nt2, nv || place};
+}
 
 // kDev > 0 fixes the device count at compile time (the fleet's 4), so
 // every window address is the replica's base plus a constant; kDev == 0
@@ -187,8 +270,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_place_kernel(
   const int cfg_commit = use4 ? cfg_fallback : cfg_pref;
   const float s = start;
   const float e = __fadd_rn(start, dur);
-  const int t = lane / W, w = lane % W;
-  const unsigned track_bits = ((1u << W) - 1u) << (t * W);
   const bool store = live && ok;
   float* c1 = r1 + sel * kCfg * TW;
   float* c2 = r2 + sel * kCfg * TW;
@@ -204,54 +285,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) fused_place_kernel(
   int n_drop = 0;
 #pragma unroll
   for (int li = 0; li < kCfg; ++li) {
-    const float md = min_dur[b * kCfg + li];
-    // 3-bit fields, row-major over (task config, list config)
-    const int occ = (occ_bits >> (3 * (cfg_commit * kCfg + li))) & 7;
-    const bool hit = av[li] && a1[li] < e && s < a2[li];
-    const float part =
-        hit ? __fsub_rn(fminf(a2[li], e), fmaxf(a1[li], s)) : 0.0f;
-    // overlap of this lane's track, summed lane 0..W-1 in order
-    float ol = 0.0f;
-#pragma unroll
-    for (int j = 0; j < W; ++j)
-      ol = __fadd_rn(ol, __shfl_sync(kFull, part, t * W + j));
-    // descending rank by overlap, the first track wins ties
-    int rank = 0;
-#pragma unroll
-    for (int u = 0; u < T; ++u) {
-      const float olu = __shfl_sync(kFull, ol, u * W);
-      rank += (olu > ol) || (olu == ol && u < t);
-    }
-    const bool active = rank < occ && ol > 0.0f;
-
-    const bool ov = hit && active;
-    const float left_t2 = fminf(a2[li], s);
-    const float right_t1 = fmaxf(a1[li], e);
-    const bool left_ok = ov && __fsub_rn(left_t2, a1[li]) >= md;
-    const bool right_ok = ov && __fsub_rn(a2[li], right_t1) >= md;
-    const bool both = left_ok && right_ok;
-    const bool nv = ov ? (left_ok || right_ok) : av[li];
-    const float nt1 =
-        nv ? ((ov && !left_ok && right_ok) ? right_t1 : a1[li]) : big;
-    const float nt2 = nv ? ((ov && left_ok) ? left_t2 : a2[li]) : big;
-
-    const unsigned free_bits = __ballot_sync(kFull, !nv) & track_bits;
-    const unsigned both_bits = __ballot_sync(kFull, both) & track_bits;
-    const int first_free = free_bits ? __ffs(free_bits) - 1 - t * W : W;
-    const int first_both = both_bits ? __ffs(both_bits) - 1 - t * W : W;
-    const bool placed = first_both < W && first_free < W;
-    // the straddle's right piece, from lane first_both (one-hot sums in
-    // the plain version)
-    const int from = t * W + (first_both < W ? first_both : 0);
-    const float sp_t1 = __fadd_rn(0.0f, __shfl_sync(kFull, right_t1, from));
-    const float sp_t2 = __fadd_rn(0.0f, __shfl_sync(kFull, a2[li], from));
-    const bool dropped = both && !(placed && w == first_both);
-    n_drop += __popc(__ballot_sync(kFull, dropped));
-    const bool place = placed && w == first_free;
+    const Slot n = commit_slot<T, W>(
+        a1[li], a2[li], av[li], s, e, min_dur[b * kCfg + li],
+        occ_of(occ_bits, cfg_commit, li), big, lane, n_drop);
     if (store) {
-      c1[li * TW] = place ? sp_t1 : nt1;
-      c2[li * TW] = place ? sp_t2 : nt2;
-      cv[li * TW] = (nv || place) ? 1 : 0;
+      c1[li * TW] = n.t1;
+      c2[li * TW] = n.t2;
+      cv[li * TW] = n.valid ? 1 : 0;
     }
   }
   if (live && lane == 0) {
@@ -296,6 +336,101 @@ void launch(void* t1, void* t2, void* valid, const void* min_dur, const void* q1
       cfg_fallback, occ_bits, big, src_pref);
 }
 
+// The fan-out commit alone, of one slot [s_in, e_in) a replica on device
+// `dev` for a task of config `cfg`, in place (the fleet's HP commit). A
+// warp a replica, as in fused_place_kernel: lane t*W + w owns slot (t, w)
+// of each of the device's three lists, which lie side by side in the row.
+// A row with do == false is neither read nor written: its loads sit under
+// a branch with no shuffle in it, and the commit is then computed on
+// placeholder windows and stored nowhere. A committing row writes back
+// only the t1, t2 and valid entries whose bits the commit changed.
+template <int T, int W>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) fanout_commit_kernel(
+    float* __restrict__ t1, float* __restrict__ t2, uint8_t* __restrict__ valid,
+    const float* __restrict__ min_dur, const float* __restrict__ s_in,
+    const float* __restrict__ e_in, const uint8_t* __restrict__ do_mask,
+    int32_t* __restrict__ drop_out, unsigned long long* __restrict__ counts,
+    int n_rows, int n_dev, int dev, int cfg, int occ_bits, float big) {
+  static_assert(T * W == 32, "one lane a (track, window) slot of a list");
+  constexpr int TW = T * W;
+  const int lane = threadIdx.x & 31;
+  const int b_warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const bool live = b_warp < n_rows;
+  const int b = live ? b_warp : n_rows - 1;
+  const bool act = live && do_mask[b] != 0;
+  // this lane's slot in list 0 of device dev of the replica
+  const size_t at = ((size_t)b * n_dev + dev) * kCfg * TW + lane;
+  float* c1 = t1 + at;
+  float* c2 = t2 + at;
+  uint8_t* cv = valid + at;
+  float a1[kCfg], a2[kCfg], md[kCfg];
+  bool av[kCfg];
+  float s = 0.0f, e = 0.0f;
+  if (act) {
+    s = s_in[b];
+    e = e_in[b];
+#pragma unroll
+    for (int li = 0; li < kCfg; ++li) {
+      a1[li] = c1[li * TW];
+      a2[li] = c2[li * TW];
+      av[li] = cv[li * TW] != 0;
+      md[li] = min_dur[b * kCfg + li];
+    }
+  } else {
+#pragma unroll
+    for (int li = 0; li < kCfg; ++li) {
+      a1[li] = big;
+      a2[li] = big;
+      av[li] = false;
+      md[li] = 0.0f;
+    }
+  }
+  int n_drop = 0;
+  bool changed = false;
+#pragma unroll
+  for (int li = 0; li < kCfg; ++li) {
+    const Slot n = commit_slot<T, W>(a1[li], a2[li], av[li], s, e, md[li],
+                                     occ_of(occ_bits, cfg, li), big, lane,
+                                     n_drop);
+    const bool new1 = __float_as_uint(n.t1) != __float_as_uint(a1[li]);
+    const bool new2 = __float_as_uint(n.t2) != __float_as_uint(a2[li]);
+    const bool newv = n.valid != av[li];
+    changed = changed || new1 || new2 || newv;
+    if (act) {
+      if (new1) c1[li * TW] = n.t1;
+      if (new2) c2[li * TW] = n.t2;
+      if (newv) cv[li * TW] = n.valid ? 1 : 0;
+    }
+  }
+  const bool row_changed = __any_sync(kFull, changed);
+  if (live && lane == 0) drop_out[b] = act ? n_drop : 0;
+  if (counts != nullptr) {  // the same for the whole grid
+    // one warp a replica: its lane 0 stands for it
+    const bool head = live && lane == 0 && act;
+    const int n_do = __syncthreads_count(head);
+    const int n_changed = __syncthreads_count(head && row_changed);
+    if (threadIdx.x == 0) {
+      if (n_do) atomicAdd(counts, (unsigned long long)n_do);
+      if (n_changed) atomicAdd(counts + 1, (unsigned long long)n_changed);
+    }
+  }
+}
+
+template <int T, int W>
+void launch_fanout(void* t1, void* t2, void* valid, const void* min_dur,
+                   const void* s, const void* e, const void* do_mask,
+                   void* n_drop, void* counts, int n_rows, int n_dev, int dev,
+                   int cfg, int occ_bits, float big, cudaStream_t stream) {
+  const int blocks = (n_rows + kWarps - 1) / kWarps;
+  fanout_commit_kernel<T, W><<<blocks, kThreads, 0, stream>>>(
+      static_cast<float*>(t1), static_cast<float*>(t2),
+      static_cast<uint8_t*>(valid), static_cast<const float*>(min_dur),
+      static_cast<const float*>(s), static_cast<const float*>(e),
+      static_cast<const uint8_t*>(do_mask), static_cast<int32_t*>(n_drop),
+      static_cast<unsigned long long*>(counts), n_rows, n_dev, dev, cfg,
+      occ_bits, big);
+}
+
 }  // namespace
 
 extern "C" {
@@ -326,6 +461,31 @@ int fused_place_launch(void* t1, void* t2, void* valid, const void* min_dur,
     return -1;
   }
 #undef FP_ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches one fan-out commit of [s, e) on device `dev` for a task of
+// config `cfg` on `stream`, in place on t1, t2 and valid; n_drop gets each
+// row's dropped pieces (0 where do is false); `counts`, two int64 counters
+// of rows committed (do) and rows whose windows changed, or null. Returns
+// as fused_place_launch does.
+int fanout_commit_launch(void* t1, void* t2, void* valid, const void* min_dur,
+                         const void* s, const void* e, const void* do_mask,
+                         void* n_drop, void* counts, int n_rows, int n_dev,
+                         int n_tracks, int n_windows, int dev, int cfg,
+                         int occ_bits, float big, int grid_x, void* stream) {
+  if (grid_x != (n_rows + kWarps - 1) / kWarps) return -2;
+  if (n_rows == 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FC_ARGS                                                            \
+  t1, t2, valid, min_dur, s, e, do_mask, n_drop, counts, n_rows, n_dev,   \
+      dev, cfg, occ_bits, big, st
+  if (n_tracks == 2 && n_windows == 16) {
+    launch_fanout<2, 16>(FC_ARGS);
+  } else {
+    return -1;
+  }
+#undef FC_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,14 +1,18 @@
-"""Wrapper of the CUDA fused placement kernel (``csrc/placement.cu``).
+"""Wrappers of the CUDA placement kernels (``csrc/placement.cu``).
 
-Replaces the TPU kernel ``repro/kernels/placement/placement.py::fused_place``.
-One launch makes one LP placement attempt for every replica of the fleet:
-query, device selection and fan-out commit, bit-identical to
-``ref.fused_place_ref``. The commit is in place: the window tensors passed
-in are updated and returned as the first three outputs.
+``fused_place`` replaces the TPU kernel
+``repro/kernels/placement/placement.py::fused_place``. One launch makes one
+LP placement attempt for every replica of the fleet: query, device
+selection and fan-out commit, bit-identical to ``ref.fused_place_ref``.
+``fanout_commit`` is the fan-out commit alone, of a given slot on one
+device, for every replica in one launch (the fleet's HP commit),
+bit-identical to ``core/tensor_state.fanout_commit``. Both commit in place:
+the window tensors passed in are updated and returned as the first three
+outputs.
 
-The kernel is built with ``nvcc`` on first use (``kernels/_build.py``) and
-called through ``ctypes`` on PyTorch's current stream. It takes CUDA
-tensors only; anything else raises.
+The kernels are built with ``nvcc`` on first use (``kernels/_build.py``),
+one library for both, and called through ``ctypes`` on PyTorch's current
+stream. They take CUDA tensors only; anything else raises.
 """
 
 from __future__ import annotations
@@ -21,13 +25,17 @@ from repro_torch.core.tensor_state import BIG, OCC_TABLE
 from repro_torch.kernels import _build
 from repro_torch.kernels.placement.ref import SRC_PREF
 
-#: kernel launches since the last reset (the fleet engine makes 21 a tick)
+#: kernel launches since the last reset: ``fused_place`` (the fleet engine
+#: makes 21 a tick) and ``fanout_commit`` (4 a tick)
 launches = 0
+launches_fanout_commit = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = [_P] * 15 + [_I] * 7 + [_F, _F, _I, _P]  # as in fused_place_launch
+#: as in fanout_commit_launch
+_FANOUT_ARGTYPES = [_P] * 9 + [_I] * 7 + [_F, _I, _P]
 
 #: OCC_TABLE packed into 3-bit fields, row-major over (task cfg, list cfg)
 _OCC_BITS = sum(
@@ -50,6 +58,8 @@ def _lib() -> ctypes.CDLL:
         lib.fused_place_launch.restype = ctypes.c_int
         lib.fused_place_error_string.argtypes = [ctypes.c_int]
         lib.fused_place_error_string.restype = ctypes.c_char_p
+        lib.fanout_commit_launch.argtypes = _FANOUT_ARGTYPES
+        lib.fanout_commit_launch.restype = ctypes.c_int
     return lib
 
 
@@ -113,3 +123,60 @@ def fused_place(t1, t2, valid, min_dur, q1, dl, src, do, *,
                                   "unsupported (T, W)")
     launches += 1
     return t1, t2, valid, ok, sel, start, dur, use4, n_drop
+
+
+def fanout_commit(t1, t2, valid, min_dur, dev: int, cfg: int, s, e, do, *,
+                  counts=None):
+    """The §IV.A.1 fan-out commit of ``[s, e)`` on device ``dev`` for a task
+    of config ``cfg``, for the whole batch in one launch, in place.
+
+    t1, t2: f32 [B, Dev, 3, 2, 16]; valid: bool, same shape; min_dur: f32
+    [B, 3]; s, e: f32 [B]; do: bool [B]; all contiguous on one CUDA
+    device. Rows with ``do`` false are neither read nor written.
+    ``counts``, an int64 [2] tensor there or None, gets the rows committed
+    (``do``) and the rows whose windows the commit changed added in the
+    launch. Returns ``(t1, t2, valid, n_dropped)``: the inputs, committed
+    in place, and the int32 [B] count of remainders dropped for want of a
+    slot (``core/tensor_state.fanout_commit``'s first four outputs).
+    """
+    global launches_fanout_commit
+    if not isinstance(t1, torch.Tensor) or not t1.is_cuda:
+        raise ValueError("fanout_commit runs on CUDA tensors only; use "
+                         "tensor_state.fanout_commit for tensors on the host")
+    B, n_dev, n_cfg, T, W = t1.shape
+    if n_cfg != 3 or (T, W) not in _SHAPES_BUILT or n_dev < 1:
+        raise ValueError(f"fanout_commit: unsupported window shape "
+                         f"{tuple(t1.shape)}")
+    if not 0 <= dev < n_dev:
+        raise ValueError(f"fanout_commit: device {dev} out of range")
+    if not 0 <= cfg < n_cfg:
+        raise ValueError(f"fanout_commit: config index {cfg} out of range")
+    device = t1.device
+    win = (B, n_dev, n_cfg, T, W)
+    for name, x, dtype, shape in (
+            ("t1", t1, torch.float32, win), ("t2", t2, torch.float32, win),
+            ("valid", valid, torch.bool, win),
+            ("min_dur", min_dur, torch.float32, (B, n_cfg)),
+            ("s", s, torch.float32, (B,)), ("e", e, torch.float32, (B,)),
+            ("do", do, torch.bool, (B,))):
+        _build.check_tensor("fanout_commit", name, x, dtype, shape, device)
+    if counts is not None:
+        _build.check_tensor("fanout_commit", "counts", counts, torch.int64,
+                            (2,), device)
+    n_drop = torch.empty((B,), dtype=torch.int32, device=device)
+    lib = _lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.fanout_commit_launch(
+            t1.data_ptr(), t2.data_ptr(), valid.data_ptr(),
+            min_dur.data_ptr(), s.data_ptr(), e.data_ptr(), do.data_ptr(),
+            n_drop.data_ptr(), None if counts is None else counts.data_ptr(),
+            B, n_dev, T, W, dev, cfg, _OCC_BITS, BIG, *launch_grid(B),
+            stream,
+        )
+    if rc != 0:
+        raise _build.launch_error("fanout_commit", rc,
+                                  lib.fused_place_error_string,
+                                  "unsupported (T, W)")
+    launches_fanout_commit += 1
+    return t1, t2, valid, n_drop

@@ -207,6 +207,28 @@ def test_placement_counters_match_the_stats(R, seed):
     assert (counts[:, 1] <= counts[:, 0]).all()
 
 
+@pytest.mark.parametrize("R", [4, 0])
+@pytest.mark.parametrize("seed", [3, 5])
+def test_hp_commit_counters_match_the_stats(R, seed):
+    """Under a device-timed timer each device's HP commit counts its rows
+    committed and the rows whose windows the commit changed: the commits
+    are the stats' ``hp_completed``, and the HP commit of a run of this
+    length changes the windows of most of them."""
+    values, bw = _population(F, seed=seed)
+    with profile.PhaseTimer(device_time=True) as t:
+        _, stats = fleet_run(make_fleet(B, requeue_slots=R, device="cpu"),
+                             values, bw, params=_params(FleetParams, R))
+    counts = np.array(t.counters()["fleet/hp_commit"])
+    assert counts.shape == (4, 2)
+    assert counts[:, 0].sum() == int(stats.hp_completed.sum()) > 0
+    assert (counts[:, 1] <= counts[:, 0]).all()
+    assert counts[:, 1].sum() > counts[:, 0].sum() // 2
+
+
+def test_fan_out_kernel_is_not_launched_on_cpu(runs):
+    assert placement_t.launches_fanout_commit == 0
+
+
 def test_kernel_is_not_launched_on_cpu(runs):
     assert placement_t.launches == 0
 

@@ -314,6 +314,7 @@ def test_every_chip_smoke_rank_share_is_declared():
      wq_t._BATCHED_ARGTYPES),
     ("window_query", "window_query_launch", wq_t._ARGTYPES),
     ("racy_sum", "racy_sum_launch", racy_kernel._ARGTYPES),
+    ("placement", "fanout_commit_launch", placement_t._FANOUT_ARGTYPES),
 ])
 def test_ctypes_signatures_match_the_c_interface(kernel, fn, argtypes):
     """One ctypes type per parameter of each new C entry point, in order
@@ -343,6 +344,7 @@ def _entry_body(kernel, fn):
 
 @pytest.mark.parametrize("kernel,fn", [
     ("placement", "fused_place_launch"),
+    ("placement", "fanout_commit_launch"),
     ("flash_attention", "flash_attention_launch"),
     ("flash_attention", "flash_attention_wgmma_launch"),
     ("flash_decode", "flash_decode_split_launch"),
