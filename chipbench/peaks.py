@@ -4,6 +4,7 @@ runs slower under load: a roofline share is stated against these peaks,
 with the card's power limit beside it."""
 
 FP32_FLOP_PER_S = 67e12      # outside the tensor cores
+BF16_FLOP_PER_S = 989.4e12   # dense, on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 
 
