@@ -26,12 +26,17 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    version's;
    ``flash_attention`` on seeded N(0,1) inputs at the waste pipeline's
    shapes (S 173 and 233, bf16 and f32), a qwen2.5-3b and a gemma2-2b local
-   and global layer, a zamba2-7b layer (hd 112), a moonshot-v1-16b-a3b
+   and global layer, a zamba2-7b layer (hd 112), zamba2-7b-instruct's
+   layer at its prefill cell's longest step (4 x 4096, hd 224, scale
+   112^-0.5) and a ragged f32 case at hd 224, a moonshot-v1-16b-a3b
    layer, a ragged small case and a non-causal one — within 2e-5 (f32)
    and 1.6e-2 (bf16, one ulp at |out| < 4), every bf16 case on the tensor-core (wgmma) kernel and every
    f32 case on the SIMT one; ``ssm_scan``, ``ssd_scan`` and ``flash_decode``
    (a split pass and a combine pass a call) at the layer
-   shapes of falcon-mamba-7b and zamba2-7b (decode also moonshot-v1-16b-a3b
+   shapes of falcon-mamba-7b and zamba2-7b (``ssd_scan`` also with B and C
+   in zamba2-7b-instruct's 2 state groups at its prefill cell's longest
+   and shortest steps, 4 x 4096 and 64 x 256, and in 3 groups at a ragged
+   f32 shape; decode also moonshot-v1-16b-a3b
    at batch 4 against a 4096 cache) and at ragged small shapes —
    scans in f32 within 1e-4 of the largest |y|, bf16 outputs within one
    bf16 ulp of the largest |y| (the 1.6e-2 of attention below 4);
@@ -102,13 +107,14 @@ exits non-zero. It imports nothing of JAX or of the JAX package.
    its bound, the plain version's time and, where one PyTorch call computes
    the same function, that call's time (a yardstick the port never calls),
    with each attention, decode and scan case's TFLOP/s or GB/s and share of
-   its bound (``ssm_scan``'s bound the largest of its bytes, f32
-   instructions and exps, all three on its timing row), and ptxas's
-   registers, spills and wgmma-serialization notes of the placement,
-   attention, decode, scan and window-query kernels; ``fused_place``'s
-   device time cold (L2 flushed by a 64 MB write, the time held to the HBM
-   bound) and warm (windows in L2, as the fleet meets them), and a
-   near-empty launch's device time; ``fanout_commit``'s cold and warm at
+   its bound (every ``ssd_scan`` case at a model's shape timed;
+   ``ssm_scan``'s bound the largest of its bytes, f32 instructions and
+   exps, all three on its timing row), and ptxas's registers, spills and
+   wgmma-serialization notes of the placement, attention, decode, scan
+   and window-query kernels; ``fused_place``'s device time cold (L2
+   flushed by a 64 MB write, the time held to the HBM bound) and warm
+   (windows in L2, as the fleet meets them), and a near-empty launch's
+   device time; ``fanout_commit``'s cold and warm at
    B=524,288 with every row committing, beside its byte bound;
    the window-query kernels' device time a launch cold (L2 flushed) and
    warm at every case, held to their byte bound, and the host's cost of
@@ -295,11 +301,18 @@ ATTN_CASES = [
     ("gemma2-2b-local", 1, 8, 4, 8192, 256, torch.bfloat16, True, 4096, 50.0),
     ("gemma2-2b-global", 1, 8, 4, 8192, 256, torch.bfloat16, True, 0, 50.0),
     ("zamba2-7b", 1, 32, 32, 4096, 112, torch.bfloat16, True, 0, 0.0),
+    ("zamba2-7b-instruct", 4, 32, 32, 4096, 224, torch.bfloat16, True, 0,
+     0.0),
+    ("ragged-hd224-f32", 2, 4, 2, 77, 224, torch.float32, True, 0, 0.0),
     ("moonshot-v1-16b-a3b", 1, 16, 16, 4096, 128, torch.bfloat16, True, 0,
      0.0),
     ("ragged-small", 2, 4, 2, 37, 32, torch.float32, True, 8, 20.0),
     ("bidirectional", 1, 4, 2, 300, 128, torch.float32, False, 0, 0.0),
 ]
+#: the scores' scale by case, hd ** -0.5 where absent: Zamba2's
+#: (hd / 2)^-0.5 at hd 224
+ATTN_SCALE = {"zamba2-7b-instruct": 112 ** -0.5,
+              "ragged-hd224-f32": 112 ** -0.5}
 MAIN_ATTN_CASE = "waste-stage3-bf16"   # the stage-3 forward's attention
 ROUTES = ("wgmma", "simt")             # flash_attention's kernels
 KERNELS = ["placement", "flash_attention", "ssm_scan", "ssd_scan",
@@ -315,12 +328,19 @@ SSM_CASES = [
     ("falcon-mamba-7b", 1, 4096, 8192, 16, torch.bfloat16),
     ("ragged-small", 2, 77, 200, 16, torch.float32),
 ]
-#: (name, B, S, H, P, N, dtype): Mamba-2 SSD scans
+#: (name, B, S, H, G, P, N, dtype): Mamba-2 SSD scans; G 0 is B and C
+#: [B,S,N], G >= 1 [B,S,G,N] with head h reading group h // (H // G)
 SSD_CASES = [
-    ("zamba2-7b", 1, 4096, 112, 64, 64, torch.bfloat16),
-    ("ragged-small", 2, 77, 3, 64, 64, torch.float32),
-    ("ragged-small-bf16", 2, 77, 3, 64, 64, torch.bfloat16),
+    ("zamba2-7b", 1, 4096, 112, 0, 64, 64, torch.bfloat16),
+    ("ragged-small", 2, 77, 3, 0, 64, 64, torch.float32),
+    ("ragged-small-bf16", 2, 77, 3, 0, 64, 64, torch.bfloat16),
+    ("zamba2-7b-instruct-4x4096", 4, 4096, 112, 2, 64, 64, torch.bfloat16),
+    ("zamba2-7b-instruct-64x256", 64, 256, 112, 2, 64, 64, torch.bfloat16),
+    ("ragged-small-g3", 2, 77, 6, 3, 64, 64, torch.float32),
 ]
+#: SSD cases timed (the first is the kernels line's main case)
+SSD_TIMED = ("zamba2-7b", "zamba2-7b-instruct-4x4096",
+             "zamba2-7b-instruct-64x256")
 #: (name, B, H, K, S, hd, dtype, window, softcap): decode attention; pos
 #: is near the end of the cache for zamba2 and moonshot (as their decode
 #: paths put it), anywhere (0 included) else. The f32 case at zamba2's
@@ -487,9 +507,10 @@ def attn_bound(B, H, K, Sq, hd, dt, causal, window, Sk=None, q_offset=0):
             "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes)
 
 
-def library_attention(q, k, v, causal, window, cap, q_offset=0):
+def library_attention(q, k, v, causal, window, cap, q_offset=0, scale=None):
     """One ``scaled_dot_product_attention`` call computing the same
-    function (k and v expanded to the query heads beforehand), q row i at
+    function (k and v expanded to the query heads beforehand, the scores
+    scaled by ``scale``, hd ** -0.5 where None), q row i at
     position ``q_offset + i``, or None where the soft-cap has no
     counterpart there. A causal share that ends at the last key takes
     ``causal_lower_right``; a window, or a share that ends before it, a
@@ -505,7 +526,8 @@ def library_attention(q, k, v, causal, window, cap, q_offset=0):
     ve = v.repeat_interleave(group, dim=1)
     if window == 0 and (not causal or (q_offset == 0 and Sq == Sk)):
         return lambda: F.scaled_dot_product_attention(q, ke, ve,
-                                                      is_causal=causal)
+                                                      is_causal=causal,
+                                                      scale=scale)
     if window == 0 and q_offset + Sq == Sk:
         mask = causal_lower_right(Sq, Sk)
     else:
@@ -514,7 +536,8 @@ def library_attention(q, k, v, causal, window, cap, q_offset=0):
         mask = diff < window if window > 0 else diff >= 0
         if causal:
             mask &= diff >= 0
-    return lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
+    return lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask,
+                                                  scale=scale)
 
 
 def ptxas_report(logs: dict, kernels) -> list:
@@ -653,7 +676,8 @@ def ssm_inputs(i, case, dev):
 def ssd_inputs(i, case, dev):
     """Seeded x, dt (f32), A (f32), B, C of a Mamba-2 scan, drawn on the
     card as ``mamba2_forward`` shapes them."""
-    _, B, S, H, P, N, dt = case
+    _, B, S, H, G, P, N, dt = case
+    rows = (B, S, G, N) if G else (B, S, N)
     g = torch.Generator(dev).manual_seed(3000 + i)
 
     def randn(*shape):
@@ -664,8 +688,8 @@ def ssd_inputs(i, case, dev):
     x = randn(B, S, H, P)
     dtv = F.softplus(randn(B, S, H) + dt_bias(H, dev))
     A = -torch.linspace(1.0, 16.0, H, device=dev)
-    return (x.to(dt), dtv.contiguous(), A, randn(B, S, N).to(dt),
-            randn(B, S, N).to(dt))
+    return (x.to(dt), dtv.contiguous(), A, randn(*rows).to(dt),
+            randn(*rows).to(dt))
 
 
 def decode_inputs(i, case, dev):
@@ -718,9 +742,10 @@ def ssd_bound(case):
     and y written once; the products of the chunked form at the kernel's
     64-row chunks (the causal half of C B^T and of W x, all of C h^T and of
     the state update) at the peak rate of the inputs' type."""
-    _, B, S, H, P, N, dt = case
+    _, B, S, H, G, P, N, dt = case
     e = 2 if dt == torch.bfloat16 else 4
-    nbytes = 2 * B * S * H * P * e + B * S * H * 4 + H * 4 + 2 * B * S * N * e
+    nbytes = (2 * B * S * H * P * e + B * S * H * 4 + H * 4
+              + 2 * B * S * max(G, 1) * N * e)
     ops = 0
     for t0 in range(0, S, 64):
         q = min(64, S - t0)
@@ -1603,16 +1628,17 @@ def time_new_kernels(dev, errs, decode_pos):
     from repro_torch.kernels.ssm_scan import ssm_scan as ssm
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
-    rows = {}
-    for kernel, case, inputs, ker_fn, ref_fn, bound in (
-            ("ssm_scan", SSM_CASES[0], ssm_inputs, ssm.ssm_scan,
-             ssm_scan_ref, ssm_bound),
-            ("ssd_scan", SSD_CASES[0], ssd_inputs, ssd.ssd_scan,
-             ssd_scan_ref, ssd_bound)):
-        xs = inputs(0, case, dev)
+    rows = {"ssd_cases": []}
+    ssd_timed = [(i, c) for i, c in enumerate(SSD_CASES) if c[0] in SSD_TIMED]
+    for kernel, (i, case), inputs, ker_fn, ref_fn, bound in (
+            [("ssm_scan", (0, SSM_CASES[0]), ssm_inputs, ssm.ssm_scan,
+              ssm_scan_ref, ssm_bound)]
+            + [("ssd_scan", ic, ssd_inputs, ssd.ssd_scan, ssd_scan_ref,
+                ssd_bound) for ic in ssd_timed]):
+        xs = inputs(i, case, dev)
         bound_ms, bound_by, ops, nbytes = bound(case)
         ms = time_ms(lambda: ker_fn(*xs))
-        rows[kernel] = {
+        row = {
             "case": case[0], "ms": ms,
             "plain_ms": time_ms(lambda: ref_fn(*xs), budget_ms=1.0),
             "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops,
@@ -1623,8 +1649,12 @@ def time_new_kernels(dev, errs, decode_pos):
                                     "selective or SSD scan",
             "max_abs_err": errs[kernel]}
         if kernel == "ssm_scan":
-            rows[kernel]["bound_terms"] = ssm_terms(case)
-        emit({"phase": "timing", "kernel": kernel, **rows[kernel]})
+            row["bound_terms"] = ssm_terms(case)
+        else:
+            row["groups"] = case[4]
+            rows["ssd_cases"].append(row)
+        rows.setdefault(kernel, row)
+        emit({"phase": "timing", "kernel": kernel, **row})
         del xs
     rows["decode_cases"] = []
     for i, case in enumerate(DECODE_CASES):
@@ -4067,6 +4097,7 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.placement import placement
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import attention_op
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     dev = torch.device("cuda")
@@ -4119,12 +4150,17 @@ def main() -> None:
     for i, c in enumerate(ATTN_CASES):
         name, *_, dt, causal, window, cap = c
         q, k, v = attn_inputs(i, c, dev)
-        kw = dict(causal=causal, window=window, softcap=cap)
+        kw = dict(causal=causal, window=window, softcap=cap,
+                  scale=ATTN_SCALE.get(name))
         reset_counts()
         ker = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         routes = {r: counts()[f"flash_attention_{r}"] for r in ROUTES}
-        ref = attention_ref(q, k, v, **kw)
+        if kw["scale"] is not None:   # the models' entry passes it on
+            check(torch.equal(attention_op(q, k, v, **kw), ker),
+                  f"attention_op differs from flash_attention in case "
+                  f"{name}")
+        ref = offset_ref(q, k, v, **kw)
         err = max_abs_err([ref], [ker])
         attn_err[name] = err
         emit({"phase": "kernel", "kernel": "flash_attention", "case": name,
@@ -4369,10 +4405,12 @@ def main() -> None:
     for i, c in enumerate(ATTN_CASES):
         name, *_, causal, window, cap = c
         q, k, v = attn_inputs(i, c, dev)
-        kw = dict(causal=causal, window=window, softcap=cap)
+        kw = dict(causal=causal, window=window, softcap=cap,
+                  scale=ATTN_SCALE.get(name))
         ker_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw))
-        ref_ms = time_ms(lambda: attention_ref(q, k, v, **kw))
-        lib = library_attention(q, k, v, causal, window, cap)
+        ref_ms = time_ms(lambda: offset_ref(q, k, v, **kw))
+        lib = library_attention(q, k, v, causal, window, cap,
+                                scale=kw["scale"])
         lib_ms = time_ms(lib) if lib is not None else None
         bound_ms, bound_by, flops, nbytes = attn_bound(*c[1:9])
         row = {"case": name, "route": fa.route(c[6]), "ms": ker_ms,
@@ -4561,6 +4599,10 @@ def main() -> None:
     }, {**new_entry("ssd_scan",
                     "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
                     "src/repro/kernels/ssd_scan/ssd_scan.py:74"),
+        "cases": [{k: r[k] for k in ("case", "groups", "ms", "plain_ms",
+                                     "bound_ms", "bound_by",
+                                     "share_of_bound")}
+                  for r in new_rows["ssd_cases"]],
         **train_fields("ssd_scan")},
         {**new_entry("ssm_scan",
                      "src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",

@@ -9,14 +9,15 @@
 // the card. It computes what the plain version
 // kernels/flash_attention/ref.py::attention_ref computes:
 //
-//   s   = (q . k) * hd^-0.5, then tanh(s / softcap) * softcap if softcap > 0;
+//   s   = (q . k) * scale (hd^-0.5 unless the caller gives another), then
+//         tanh(s / softcap) * softcap if softcap > 0;
 //   s   = NEG_INF (-1e30) where the key is masked: k_pos > q_pos (causal),
 //         q_pos - k_pos >= window (window > 0), or k_pos >= Sk (ragged
 //         edge);
 //   out = softmax(s) v, with f32 accumulation.
 //
 // q is [B,H,Sq,hd], k and v are [B,K,Sk,hd], all contiguous f32; query head
-// h reads kv head h / (H / K); hd in {32, 64, 112, 128, 256}. Query row i
+// h reads kv head h / (H / K); hd in {32, 64, 112, 128, 224, 256}. Query row i
 // stands at position q_pos = q_offset + i (0 <= q_offset, q_offset + Sq <=
 // Sk), key row j at k_pos = j: a rank that holds the rows [s0, s0 + Sq) of
 // a sequence-sharded q passes q_offset = s0 and every key. Without an
@@ -254,6 +255,9 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
                             window, scale, softcap, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
+                            window, scale, softcap, stream);
+    case 224:
+      return launch<T, 224>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
                             window, scale, softcap, stream);
     case 256:
       return launch<T, 256>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,

@@ -6,13 +6,14 @@
 // take the SIMT kernel of flash_attention.cu. It computes what the plain
 // version kernels/flash_attention/ref.py::attention_ref computes:
 //
-//   s   = (q . k) * hd^-0.5, then tanh(s / softcap) * softcap if softcap > 0;
+//   s   = (q . k) * scale (hd^-0.5 unless the caller gives another), then
+//         tanh(s / softcap) * softcap if softcap > 0;
 //   s   is masked where k_pos > q_pos (causal), q_pos - k_pos >= window
 //         (window > 0) or k_pos >= Sk (ragged edge): p = 0 exactly there;
 //   out = softmax(s) v, f32 accumulation, written in bf16.
 //
 // q is [B,H,Sq,hd], k and v are [B,K,Sk,hd], all contiguous bf16; query
-// head h reads kv head h / (H / K); hd in {32, 64, 112, 128, 256}. Query row
+// head h reads kv head h / (H / K); hd in {32, 64, 112, 128, 224, 256}. Query row
 // i stands at position q_pos = q_offset + i (0 <= q_offset, q_offset + Sq <=
 // Sk), key row j at k_pos = j: a rank that holds the rows [s0, s0 + Sq) of
 // a sequence-sharded q passes q_offset = s0 and every key. Without an
@@ -43,7 +44,8 @@
 //   released as soon as its scores are in, v after its P V). Sq and Sk are
 //   dimensions of the maps, so a tile that runs past them reads zeros,
 //   never the next head's rows; hd 112 is read as two boxes of 64 columns
-//   whose last 16 are zero, computed as 128 and stored as 112.
+//   whose last 16 are zero, computed as 128 and stored as 112, and hd 224
+//   as four whose last 32 are zero, computed as 256 and stored as 224.
 // - S = Q K^T is wgmma m64nBKk16 with both operands in shared memory (the
 //   k tile [BK, hd] is K-major as it lands). The softmax runs on the
 //   accumulator fragment in registers: a row lives in the 4 lanes of a quad,
@@ -70,8 +72,9 @@
 //   flight nothing writes its registers: the softmax works in place on the
 //   scores, and O's rescale and P's conversion to the A fragment wait for
 //   the P V (else ptxas serializes every wgmma of the kernel).
-// - Tiles are BK = 128 keys at hd <= 128 and 64 at hd 256: q 64 KB + two
-//   stages of k and v (32 KB each) = 192 KB of dynamic shared memory there.
+// - Tiles are BK = 128 keys at hd <= 128 and 64 at hd 224 and 256: q 64 KB
+//   + two stages of k and v (32 KB each) = 192 KB of dynamic shared memory
+//   there.
 // - The epilogue divides by max(l, 1e-30), as the reference does, and
 //   stores rows < Sq and columns < hd from registers. The masks and the
 //   tile range read a row's position, q_offset + its row.
@@ -779,6 +782,9 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
                          window, scale, softcap, st);
     case 128:
       return launch<128>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
+                         window, scale, softcap, st);
+    case 224:
+      return launch<224>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,
                          window, scale, softcap, st);
     case 256:
       return launch<256>(q, k, v, o, B, H, K, Sq, Sk, q_offset, causal,

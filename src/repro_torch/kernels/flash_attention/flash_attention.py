@@ -38,7 +38,7 @@ launches = 0
 launches_wgmma = 0
 launches_simt = 0
 
-HEAD_DIMS = (32, 64, 112, 128, 256)   # instantiated in both .cu files
+HEAD_DIMS = (32, 64, 112, 128, 224, 256)   # instantiated in both .cu files
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 #: query rows a block (kBQ of each .cu)
 BLOCK_Q = {"wgmma": 128, "simt": 64}
@@ -79,12 +79,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, q_offset: int = 0):
+                    softcap: float = 0.0, q_offset: int = 0, scale=None):
     """q: [B,H,Sq,hd]; k, v: [B,K,Sk,hd] (K divides H), contiguous, f32
     or bf16, on one CUDA device -> [B,H,Sq,hd] in q's dtype. Query row i
     stands at position ``q_offset + i`` and key row j at j, with
     ``0 <= q_offset`` and ``q_offset + Sq <= Sk``. ``window`` > 0 keeps
-    keys with ``q_pos - k_pos < window``; ``softcap`` > 0 applies
+    keys with ``q_pos - k_pos < window``; the scores are scaled by
+    ``scale`` (``hd ** -0.5`` where None); ``softcap`` > 0 applies
     ``tanh(s / softcap) * softcap`` to the scaled scores. The output has
     no ``grad_fn``: under grad mode an input that requires grad raises
     (``ops.attention_op`` differentiates)."""
@@ -124,7 +125,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         rc = getattr(lib, _ENTRY[kind])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, H, K, Sq, Sk, int(q_offset), hd, int(bool(causal)),
-            max(int(window), 0), hd ** -0.5, float(softcap),
+            max(int(window), 0), hd ** -0.5 if scale is None else scale,
+            float(softcap),
             *launch_grid(B, H, Sq, kind), stream,
         )
     if rc != 0:

@@ -57,6 +57,10 @@ def geometries():
         _case(1, 16, 2, 4096, 128, "wgmma"),
         _case(1, 8, 4, 8192, 256, "wgmma"),
         _case(1, 32, 32, 4096, 112, "wgmma"),
+        # zamba2-7b-instruct's hd 224 at the prefill cell's longest step,
+        # and a ragged f32 case of it
+        _case(4, 32, 32, 4096, 224, "wgmma"),
+        _case(2, 4, 2, 77, 224, "simt"),
         # chip_smoke.py's f32 cases: waste, ragged and bidirectional
         _case(1, 8, 8, 173, 64, "simt"), _case(2, 4, 2, 37, 32, "simt"),
         _case(1, 4, 2, 300, 128, "simt"),

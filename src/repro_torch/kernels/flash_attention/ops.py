@@ -26,23 +26,24 @@ class _KernelAttention(torch.autograd.Function):
     ``attention_ref`` recomputed on the saved q, k and v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset, scale):
         ctx.save_for_backward(q, k, v)
         ctx.kw = dict(causal=causal, window=window, softcap=softcap,
-                      q_offset=q_offset)
+                      q_offset=q_offset, scale=scale)
         return flash_attention(q, k, v, **ctx.kw)
 
     @staticmethod
     def backward(ctx, grad_out):
         return (*recompute_vjp(attention_ref, ctx, grad_out, **ctx.kw),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def attention_op(q, k, v, *, causal=True, window=0, softcap=0.0,
-                 q_offset=0, backend: str = "auto"):
+                 q_offset=0, scale=None, backend: str = "auto"):
     """q: [B,H,Sq,hd]; k, v: [B,K,Sk,hd] -> [B,H,Sq,hd], query row i at
     position ``q_offset + i`` (``q_offset + Sq <= Sk``; without an offset
-    Sq = Sk).
+    Sq = Sk). The scores are scaled by ``scale``, ``hd ** -0.5`` where
+    None.
 
     backend: "auto" -> the CUDA kernel for CUDA tensors, the plain PyTorch
     version for CPU tensors; "kernel" -> the CUDA kernel (raises on CPU
@@ -69,15 +70,16 @@ def attention_op(q, k, v, *, causal=True, window=0, softcap=0.0,
             return attention_op(ql.contiguous(), kl.contiguous(),
                                 vl.contiguous(), causal=causal,
                                 window=window, softcap=softcap,
-                                q_offset=q_offset + s0, backend=backend)
+                                q_offset=q_offset + s0, scale=scale,
+                                backend=backend)
 
         return spmd.attend(core, q, k, v, q_heads=1, kv_heads=1, q_seq=2)
     if backend == "auto":
         backend = "kernel" if q.is_cuda else "ref"
     if backend == "kernel":
         return _KernelAttention.apply(q, k, v, causal, window, softcap,
-                                      q_offset)
+                                      q_offset, scale)
     if backend != "ref":
         raise ValueError(f"unknown attention backend: {backend!r}")
     return attention_ref(q, k, v, causal=causal, window=window,
-                         softcap=softcap, q_offset=q_offset)
+                         softcap=softcap, q_offset=q_offset, scale=scale)

@@ -7,8 +7,9 @@
 //   h_t = exp(dt_t * A_h) h_{t-1} + dt_t x_t B_t^T,   y_t = h_t C_t
 //
 // for each batch row b and head h, with x, y [B,S,H,P], dt [B,S,H] float,
-// A [H] float, B, C [B,S,N] (x, B, C and y float or bf16) and the state
-// h [P,N] in f32 from 0. Like the Pallas kernel it takes the sequence in
+// A [H] float, B, C [B,S,G,N] (x, B, C and y float or bf16) and the state
+// h [P,N] in f32 from 0. Head h reads state group h / (H / G) of B and C
+// (Mamba-2's ngroups; G = 1 is one group for every head). Like the Pallas kernel it takes the sequence in
 // chunks and computes, per chunk of kQ rows with L = cumsum(dt * A):
 //
 //   G = C B^T;  W[t,s] = G[t,s] * exp(L_t - L_s) * dt_s  (s <= t, else 0)
@@ -184,7 +185,7 @@ __global__ void __launch_bounds__(kMmaThreads, 4) ssd_scan_mma_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const __nv_bfloat16* __restrict__ Bm,
     const __nv_bfloat16* __restrict__ Cm, __nv_bfloat16* __restrict__ y,
-    int S, int H) {
+    int S, int H, int G) {
   static_assert(N == 64 && P % kPB == 0, "4 pairs of 8 state columns");
   using L = MmaSmem<N>;
   constexpr int CS = L::CS, XS = L::XS;
@@ -199,6 +200,7 @@ __global__ void __launch_bounds__(kMmaThreads, 4) ssd_scan_mma_kernel(
   const int grp = lane / 4, tig = lane % 4;
   const int pb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int p0 = pb * kPB;
+  const int sg = h / (H / G);   // the head's state group of B and C
   const float a2 = A[h] * kLog2e;
   // ldmatrix row and column of this lane within a 16 x 16 tile, for the
   // two orders in which the four 8 x 8 matrices are wanted
@@ -233,7 +235,7 @@ __global__ void __launch_bounds__(kMmaThreads, 4) ssd_scan_mma_kernel(
     for (int j = 0; j < kQ / kRowsPass; ++j) {
       const int r = lrow + kRowsPass * j;
       const bool ok = t0 + r < S;
-      const long long off = ok ? (row_b + t0 + r) * N + lvec : 0;
+      const long long off = ok ? ((row_b + t0 + r) * G + sg) * N + lvec : 0;
       cp_async16(stC(st) + r * CS + lvec, Cm + off, ok);
       cp_async16(stB(st) + r * CS + lvec, Bm + off, ok);
     }
@@ -514,7 +516,8 @@ template <int P, int N>
 __global__ void __launch_bounds__(kSimtThreads) ssd_scan_simt_kernel(
     const float* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm,
-    const float* __restrict__ Cm, float* __restrict__ y, int S, int H) {
+    const float* __restrict__ Cm, float* __restrict__ y, int S, int H,
+    int G) {
   static_assert(kPB == kTX && N % kTX == 0, "a thread column a P column");
   constexpr int XS = kPB;          // row strides of the shared tiles
   constexpr int BS = N + 1;
@@ -533,6 +536,7 @@ __global__ void __launch_bounds__(kSimtThreads) ssd_scan_simt_kernel(
   const int tid = threadIdx.x;
   const int tx = tid % kTX, ty = tid / kTX;
   const int p0 = blockIdx.x * kPB, h = blockIdx.y, b = blockIdx.z;
+  const int sg = h / (H / G);   // the head's state group of B and C
   const float a_h = A[h];
 
   for (int i = tid; i < kPB * HS; i += kSimtThreads) sH[i] = 0.0f;
@@ -548,7 +552,7 @@ __global__ void __launch_bounds__(kSimtThreads) ssd_scan_simt_kernel(
     }
     for (int i = tid; i < kQ * N; i += kSimtThreads) {
       const int r = i / N, c = i % N;
-      const long long off = ((long long)b * S + t0 + r) * N + c;
+      const long long off = (((long long)b * S + t0 + r) * G + sg) * N + c;
       sB[r * BS + c] = r < qn ? Bm[off] : 0.0f;
       sC[r * BS + c] = r < qn ? Cm[off] : 0.0f;
     }
@@ -632,7 +636,7 @@ __global__ void __launch_bounds__(kSimtThreads) ssd_scan_simt_kernel(
 
 template <int P, int N>
 int launch(const void* x, const float* dt, const float* A, const void* Bm,
-           const void* Cm, void* y, int B, int S, int H, int is_bf16,
+           const void* Cm, void* y, int B, int S, int H, int G, int is_bf16,
            cudaStream_t stream) {
   const dim3 grid(P / kPB, H, B);
   if (is_bf16) {
@@ -645,7 +649,7 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
         static_cast<const __nv_bfloat16*>(x), dt, A,
         static_cast<const __nv_bfloat16*>(Bm),
         static_cast<const __nv_bfloat16*>(Cm),
-        static_cast<__nv_bfloat16*>(y), S, H);
+        static_cast<__nv_bfloat16*>(y), S, H, G);
   } else {
     auto kernel = ssd_scan_simt_kernel<P, N>;
     constexpr size_t smem = sizeof(float) * simt_smem_floats<N>();
@@ -654,16 +658,16 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<grid, kSimtThreads, smem, stream>>>(
         static_cast<const float*>(x), dt, A, static_cast<const float*>(Bm),
-        static_cast<const float*>(Cm), static_cast<float*>(y), S, H);
+        static_cast<const float*>(Cm), static_cast<float*>(y), S, H, G);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_pn(int P, int N, const void* x, const float* dt, const float* A,
               const void* Bm, const void* Cm, void* y, int B, int S, int H,
-              int is_bf16, cudaStream_t stream) {
+              int G, int is_bf16, cudaStream_t stream) {
   if (P == 64 && N == 64)
-    return launch<64, 64>(x, dt, A, Bm, Cm, y, B, S, H, is_bf16, stream);
+    return launch<64, 64>(x, dt, A, Bm, Cm, y, B, S, H, G, is_bf16, stream);
   return -1;
 }
 
@@ -672,20 +676,22 @@ int launch_pn(int P, int N, const void* x, const float* dt, const float* A,
 extern "C" {
 
 // Launches one SSD scan of x [B,S,H,P], dt [B,S,H] (float), A [H] (float),
-// B, C [B,S,N] into y [B,S,H,P], on `stream`. is_bf16: 0 for float (CUDA
-// cores), 1 for bf16 (x, B, C and y; tensor cores). Returns the
-// cudaGetLastError() code of the launch (0 on success), -1 for a (P, N)
-// this file was not instantiated for, or -2 if (grid_x, grid_y, grid_z),
-// the wrapper's grid, is not the one this file's tiling needs.
+// B, C [B,S,G,N] (head h reading group h / (H / G)) into y [B,S,H,P], on
+// `stream`. is_bf16: 0 for float (CUDA cores), 1 for bf16 (x, B, C and y;
+// tensor cores). Returns the cudaGetLastError() code of the launch (0 on
+// success), -1 for a (P, N) this file was not instantiated for or a G
+// that does not divide H, or -2 if (grid_x, grid_y, grid_z), the wrapper's
+// grid, is not the one this file's tiling needs.
 int ssd_scan_launch(const void* x, const void* dt, const void* A,
                     const void* Bm, const void* Cm, void* y, int B, int S,
-                    int H, int P, int N, int is_bf16, int grid_x, int grid_y,
-                    int grid_z, void* stream) {
+                    int H, int P, int N, int G, int is_bf16, int grid_x,
+                    int grid_y, int grid_z, void* stream) {
   if (P % kPB != 0 || grid_x != P / kPB || grid_y != H || grid_z != B)
     return -2;
+  if (G < 1 || H % G != 0) return -1;
   return launch_pn(P, N, x, static_cast<const float*>(dt),
-                   static_cast<const float*>(A), Bm, Cm, y, B, S, H, is_bf16,
-                   static_cast<cudaStream_t>(stream));
+                   static_cast<const float*>(A), Bm, Cm, y, B, S, H, G,
+                   is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 const char* ssd_scan_error_string(int code) {

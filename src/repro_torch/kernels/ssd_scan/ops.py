@@ -42,7 +42,8 @@ class _KernelSSD(torch.autograd.Function):
 
 def ssd_scan_op(x, dt, A, B, C, *, backend: str = "auto",
                 chunk: int = 256):
-    """x: [B,S,H,P]; dt: [B,S,H]; A: [H]; B, C: [B,S,N] -> [B,S,H,P].
+    """x: [B,S,H,P]; dt: [B,S,H]; A: [H]; B, C: [B,S,N], or [B,S,G,N] in
+    G state groups of the heads -> [B,S,H,P].
 
     backend: "auto" -> the CUDA kernel for CUDA tensors, the plain PyTorch
     version for CPU tensors; "kernel" -> the CUDA kernel (raises on CPU
@@ -54,13 +55,17 @@ def ssd_scan_op(x, dt, A, B, C, *, backend: str = "auto",
     multiple of ``chunk``.
 
     DTensors (a model on a mesh) run on their local shards through
-    ``spmd.scan``: batch rows and channels.
+    ``spmd.scan``: batch rows and channels, with one state group (a head
+    shard would need its own groups of B and C).
 
     Launches are counted in ``ssd_scan.launches``: the forward's, and again
     a recomputed forward's under ``torch.utils.checkpoint``; the backward
     launches none.
     """
     if spmd.is_dtensor(x):
+        if B.dim() == 4:
+            raise NotImplementedError("ssd_scan_op on a mesh takes one "
+                                      "state group")
         # local_map: the kernel reads raw pointers, so a DTensor never
         # reaches it; a batch row's or a channel's scan is local
         def fn(x, dt, A, B, C):

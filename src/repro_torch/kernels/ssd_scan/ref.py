@@ -6,7 +6,11 @@ oracle the CUDA kernel is held to, and the path ``backend="ref"`` takes.
 reference's ``models/ssm.py::_ssd_chunked``): the path CPU tensors take in
 ``models/ssm.py``, and the function whose vjp the kernel route's backward
 recomputes (``ops.py``), since stepping through S is far too slow to
-differentiate at a model's length."""
+differentiate at a model's length.
+
+B and C are [B,S,N], one state group for every head, or [B,S,G,N], G
+groups of the heads in order (Mamba-2's ngroups): head h reads group
+``h // (H // G)``."""
 
 from __future__ import annotations
 
@@ -14,11 +18,13 @@ import torch
 
 
 def ssd_scan_ref(x, dt, A, B, C):
-    """x: [B,S,H,P]; dt: [B,S,H]; A: [H]; B, C: [B,S,N] -> [B,S,H,P] in
-    x's dtype.
+    """x: [B,S,H,P]; dt: [B,S,H]; A: [H]; B, C: [B,S,N] or [B,S,G,N] ->
+    [B,S,H,P] in x's dtype.
 
     ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t``, ``y_t = C_t · h_t``, with
     the state ``h [B,H,P,N]`` in f32 from 0."""
+    if B.dim() == 4:
+        return _by_group(ssd_scan_ref, x, dt, A, B, C)
     out_dtype = x.dtype
     x, dt, A, B, C = (t.float() for t in (x, dt, A, B, C))
     Bsz, S, H, P = x.shape
@@ -33,16 +39,30 @@ def ssd_scan_ref(x, dt, A, B, C):
     return y.to(out_dtype)
 
 
+def _by_group(fn, x, dt, A, B, C, *args):
+    """``fn`` on each state group's heads with its B and C [B,S,N], the
+    heads' outputs side by side: B, C [B,S,G,N], head h in group
+    ``h // (H // G)``."""
+    k = x.shape[2] // B.shape[2]
+    heads = [slice(g * k, (g + 1) * k) for g in range(B.shape[2])]
+    return torch.cat([fn(x[:, :, h], dt[:, :, h], A[h], B[:, :, g],
+                         C[:, :, g], *args) for g, h in enumerate(heads)],
+                     dim=2)
+
+
 def ssd_chunked_ref(xh, dt, A, B, C, chunk: int):
     """SSD scan in chunks of ``chunk`` steps. xh: [B,S,H,P]; dt: [B,S,H];
-    A: [H] (negative); B, C: [B,S,N] (one state group) -> y [B,S,H,P] in
-    xh's dtype. S must be a multiple of ``chunk``. The reference's
-    ``_ssd_chunked``, with the decay's exponent masked before its exp so
-    that the gradient stays finite where the masked exponent overflows."""
+    A: [H] (negative); B, C: [B,S,N] (one state group) or [B,S,G,N] -> y
+    [B,S,H,P] in xh's dtype. S must be a multiple of ``chunk``. The
+    reference's ``_ssd_chunked``, with the decay's exponent masked before
+    its exp so that the gradient stays finite where the masked exponent
+    overflows."""
     Bsz, S, H, P = xh.shape
     if S % chunk:
         raise ValueError(f"sequence of {S} is not a multiple of the SSM "
                          f"chunk {chunk} (pad upstream)")
+    if B.dim() == 4:
+        return _by_group(ssd_chunked_ref, xh, dt, A, B, C, chunk)
     nchunks = S // chunk
     l = (dt * A[None, None]).float().reshape(Bsz, nchunks, chunk, H)
     Lcum = torch.cumsum(l, dim=2)                             # [B,nc,C,H]

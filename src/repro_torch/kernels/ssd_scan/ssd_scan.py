@@ -30,7 +30,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]   # as in ssd_scan_launch
+_ARGTYPES = [_P] * 6 + [_I] * 10 + [_P]   # as in ssd_scan_launch
 
 BLOCK_P = 16   # columns of the head dim a block (kPB of the .cu)
 
@@ -53,11 +53,13 @@ def _lib() -> ctypes.CDLL:
 
 
 def ssd_scan(x, dt, A, B, C):
-    """x: [B,S,H,P]; dt: [B,S,H] f32; A: [H] f32; B, C: [B,S,N]; x, B and
-    C of one dtype (f32 or bf16), all contiguous on one CUDA device, x, B
-    and C 16-byte aligned -> y [B,S,H,P] in x's dtype. The output has no
-    ``grad_fn``: under grad mode an input that requires grad raises
-    (``ops.ssd_scan_op`` differentiates)."""
+    """x: [B,S,H,P]; dt: [B,S,H] f32; A: [H] f32; B, C: [B,S,N] (one
+    state group) or [B,S,G,N] (G groups, G dividing H: head h reads group
+    ``h // (H // G)``); x, B and C of one dtype (f32 or bf16), all
+    contiguous on one CUDA device, x, B and C 16-byte aligned -> y
+    [B,S,H,P] in x's dtype. The output has no ``grad_fn``: under grad mode
+    an input that requires grad raises (``ops.ssd_scan_op``
+    differentiates)."""
     if spmd.is_dtensor(x):
         raise TypeError("ssd_scan reads raw pointers: pass local "
                         "tensors (a DTensor goes through ops.py's "
@@ -67,10 +69,13 @@ def ssd_scan(x, dt, A, B, C):
     if not isinstance(x, torch.Tensor) or not x.is_cuda:
         raise ValueError("ssd_scan runs on CUDA tensors only; use "
                          "ssd_scan_ref for tensors on the host")
-    if x.dim() != 4 or B.dim() != 3:
-        raise ValueError("ssd_scan: x must be 4-d and B 3-d")
+    if x.dim() != 4 or B.dim() not in (3, 4):
+        raise ValueError("ssd_scan: x must be 4-d and B 3-d or 4-d")
     Bsz, S, H, P = x.shape
-    N = B.shape[2]
+    G, N = (1, B.shape[2]) if B.dim() == 3 else B.shape[2:]
+    if H % G:
+        raise ValueError(f"ssd_scan: {G} state groups do not divide {H} "
+                         "heads")
     if x.dtype not in _DTYPES:
         raise ValueError(f"ssd_scan: unsupported dtype {x.dtype}")
     if (P, N) not in SHAPES:
@@ -82,8 +87,9 @@ def ssd_scan(x, dt, A, B, C):
     for name, t, dtype, shape in (
             ("x", x, x.dtype, (Bsz, S, H, P)),
             ("dt", dt, torch.float32, (Bsz, S, H)),
-            ("A", A, torch.float32, (H,)), ("B", B, x.dtype, (Bsz, S, N)),
-            ("C", C, x.dtype, (Bsz, S, N))):
+            ("A", A, torch.float32, (H,)),
+            ("B", B, x.dtype, (Bsz, S, *B.shape[2:])),
+            ("C", C, x.dtype, (Bsz, S, *B.shape[2:]))):
         _build.check_tensor("ssd_scan", name, t, dtype, shape, dev)
         if name in ("x", "B", "C") and t.data_ptr() % 16:
             raise ValueError(f"ssd_scan: {name} is not 16-byte aligned")
@@ -93,7 +99,8 @@ def ssd_scan(x, dt, A, B, C):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), Bsz, S, H, P, N, _DTYPES[x.dtype],
+            C.data_ptr(), y.data_ptr(), Bsz, S, H, P, N, G,
+            _DTYPES[x.dtype],
             *launch_grid(Bsz, H, P), stream,
         )
     if rc != 0:

@@ -79,6 +79,7 @@ def rms_norm(x, scale, eps=1e-6):
 def act_fn(name: str):
     return {"silu": F.silu,
             "gelu": lambda x: F.gelu(x, approximate="tanh"),
+            "gelu_exact": F.gelu,
             "relu": F.relu}[name]
 
 
@@ -134,6 +135,11 @@ class AttnDims:
     head_dim: int
     rope_theta: float = 1e4
     attn_softcap: float = 0.0
+    scale: float | None = None    # of the scores; None -> head_dim ** -0.5
+
+    @property
+    def score_scale(self) -> float:
+        return self.head_dim ** -0.5 if self.scale is None else self.scale
 
 
 #: set by ``drawing``: takes each weight ``normal_init`` draws and gives
@@ -171,7 +177,9 @@ def normal_init(gen, shape, scale, dtype, device):
 
 
 def init_attention(gen, d_model, dims: AttnDims, qkv_bias=False,
-                   dtype=torch.bfloat16, device=None) -> dict:
+                   dtype=torch.bfloat16, device=None, d_out=None) -> dict:
+    """q, k and v from ``d_model`` wide inputs; the output ``d_out`` wide
+    (``d_model`` where None)."""
     H, K, hd = dims.n_heads, dims.n_kv_heads, dims.head_dim
     s = d_model ** -0.5
 
@@ -182,7 +190,8 @@ def init_attention(gen, d_model, dims: AttnDims, qkv_bias=False,
         "wq": draw((d_model, H, hd), s),
         "wk": draw((d_model, K, hd), s),
         "wv": draw((d_model, K, hd), s),
-        "wo": draw((H, hd, d_model), (H * hd) ** -0.5),
+        "wo": draw((H, hd, d_model if d_out is None else d_out),
+                   (H * hd) ** -0.5),
     }
     if qkv_bias:
         p["bq"] = torch.zeros((H, hd), dtype=dtype, device=device)
@@ -210,7 +219,7 @@ def _sdpa(q, k, v, mask, dims: AttnDims):
     B, Sq = q.shape[:2]
     q = q.reshape(B, Sq, K, G, dims.head_dim)
     scores = torch.einsum("bqkgh,bskh->bkgqs", q, k).float()
-    scores = scores * dims.head_dim ** -0.5
+    scores = scores * dims.score_scale
     scores = softcap(scores, dims.attn_softcap)
     scores = scores + mask[:, None, None, :, :]
     w = torch.softmax(scores, dim=-1).to(v.dtype)
@@ -233,7 +242,8 @@ def attention(p, x, dims: AttnDims, positions, window: int = -1,
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         out = attention_op(
             qh, kh, vh, causal=True, window=max(window, 0),
-            softcap=dims.attn_softcap, backend=backend,
+            softcap=dims.attn_softcap, scale=dims.scale,
+            backend=backend,
         ).transpose(1, 2)
     else:
         mask = causal_window_mask(positions, positions, window)
@@ -327,7 +337,8 @@ def _attention_on_mesh(p, x, dims: AttnDims, positions, window: int,
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         out = attention_op(
             qh, kh, vh, causal=True, window=max(window, 0),
-            softcap=dims.attn_softcap, backend=backend,
+            softcap=dims.attn_softcap, scale=dims.scale,
+            backend=backend,
         ).transpose(1, 2)
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
@@ -538,3 +549,27 @@ def mlp(p, x, act="silu"):
     g = act_fn(act)(torch.einsum("bsd,df->bsf", x, p["wg"]))
     u = torch.einsum("bsd,df->bsf", x, p["wu"])
     return torch.einsum("bsf,fd->bsd", g * u, p["wd"])
+
+
+def init_adapter(gen, d_model, d_ff, rank, dtype=torch.bfloat16,
+                 device=None) -> dict:
+    """A rank-``rank`` adapter of a gated MLP's gate and up projections:
+    ``wa`` [D, r], then ``wg`` and ``wu`` [r, F]."""
+    def draw(shape, scale):
+        return normal_init(gen, shape, scale, dtype, device)
+
+    return {"wa": draw((d_model, rank), d_model ** -0.5),
+            "wg": draw((rank, d_ff), rank ** -0.5),
+            "wu": draw((rank, d_ff), rank ** -0.5)}
+
+
+def adapted_mlp(p, adapter, x, act):
+    """``mlp`` with ``adapter``'s low-rank terms added to the gate and up
+    projections before the activation (Zamba2's shared MLP, whose adapter
+    belongs to the call)."""
+    a = torch.einsum("bsd,dr->bsr", x, adapter["wa"])
+    g = torch.einsum("bsd,df->bsf", x, p["wg"]) \
+        + torch.einsum("bsr,rf->bsf", a, adapter["wg"])
+    u = torch.einsum("bsd,df->bsf", x, p["wu"]) \
+        + torch.einsum("bsr,rf->bsf", a, adapter["wu"])
+    return torch.einsum("bsf,fd->bsd", act_fn(act)(g) * u, p["wd"])

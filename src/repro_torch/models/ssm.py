@@ -18,6 +18,14 @@ Both routes differentiate. Either way the sequence must be a multiple of
 ``SSMDims.chunk``, as the JAX package's chunked forms assert.
 
 Single-token decode is the exact recurrence (O(1) state per token).
+
+``SSMDims.ngroups`` > 0 selects the published Mamba-2 mixer (Zamba2-7B,
+transformers' ``Zamba2MambaMixer``) in place of the JAX package's:
+``in_proj`` gives z, the conv's input [x, B, C] and dt at once; the conv
+(with its bias) covers x, B and C; B and C come in ``ngroups`` state
+groups, head h reading group ``h // (H / ngroups)``; the gated RMS norm
+is taken over each group's channels of ``y * silu(z)``. Its decode is not
+written.
 """
 
 from __future__ import annotations
@@ -44,6 +52,9 @@ class SSMDims:
     version: int = 1          # 1 = mamba1, 2 = mamba2 (SSD)
     head_dim: int = 64        # mamba2 P
     chunk: int = 256
+    ngroups: int = 0          # mamba2: 0 the JAX package's mixer, else the
+    #                           published one with B, C in this many groups
+    norm_eps: float = 1e-6    # the published mixer's gated norm
 
     @property
     def d_inner(self) -> int:
@@ -77,6 +88,20 @@ def init_ssm(gen, dims: SSMDims, dtype=torch.bfloat16, device=None) -> dict:
         return normal_init(gen, shape, scale, dtype, device)
 
     f32 = dict(dtype=torch.float32, device=device)
+    if dims.ngroups:
+        # the published mixer: in_proj gives [z, x B C, dt]
+        H, conv = dims.n_heads, di + 2 * dims.ngroups * N
+        return {
+            "in_proj": draw((dims.d_model, di + conv + H),
+                            dims.d_model ** -0.5),
+            "conv_w": draw((dims.d_conv, conv), dims.d_conv ** -0.5),
+            "conv_b": torch.zeros((conv,), dtype=dtype, device=device),
+            "out_proj": draw((di, dims.d_model), di ** -0.5),
+            "dt_bias": _inverse_softplus_linspace(H, device),
+            "A_log": torch.log(torch.arange(1, H + 1, **f32)),
+            "D_head": torch.ones((H,), **f32),
+            "norm_scale": torch.zeros((di,), dtype=dtype, device=device),
+        }
     p = {
         "in_proj": draw((dims.d_model, 2 * di), dims.d_model ** -0.5),
         "conv_w": draw((dims.d_conv, di), 0.2),
@@ -280,9 +305,46 @@ def mamba1_decode(p, x, dims: SSMDims, h, conv_buf):
 # Mamba-2: SSD (chunked block decomposition)
 # ---------------------------------------------------------------------------
 
+def gated_rms_norm(y, z, scale, groups: int, eps: float):
+    """``y * silu(z)`` RMS-normed over each of ``groups`` equal groups of
+    its last dim, in f32, times ``1 + scale``; in y's dtype."""
+    h = y.float() * torch.nn.functional.silu(z.float())
+    h = h.unflatten(-1, (groups, -1))
+    h = h * torch.rsqrt(h.square().mean(-1, keepdim=True) + eps)
+    return (h.flatten(-2) * (1.0 + scale.float())).to(y.dtype)
+
+
+def _mamba2_grouped_forward(p, x, dims: SSMDims, backend: str):
+    """The published Mamba-2 mixer (``dims.ngroups`` state groups)."""
+    B_, S, _ = x.shape
+    H, P, N, G = dims.n_heads, dims.head_dim, dims.d_state, dims.ngroups
+    di = dims.d_inner
+    proj = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    z, xbc, dt_h = torch.split(proj, [di, di + 2 * G * N, H], dim=-1)
+    xbc = act_fn("silu")(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    xin, Bm, Cm = torch.split(xbc, [di, G * N, G * N], dim=-1)
+    dt = _dt_softplus(dt_h, p["dt_bias"])                     # [B,S,H]
+    A = -torch.exp(p["A_log"])                                # [H]
+    xh = xin.reshape(B_, S, H, P)
+    Bg, Cg = Bm.reshape(B_, S, G, N), Cm.reshape(B_, S, G, N)
+    if xh.is_cuda:
+        _check_chunked(S, dims.chunk)
+        y = ssd_scan_op(xh.contiguous(), dt.contiguous(), A,
+                        Bg.contiguous(), Cg.contiguous(), backend=backend,
+                        chunk=dims.chunk)
+    else:
+        y = _ssd_chunked(xh, dt, A, Bg, Cg, dims.chunk)
+    y = y + xh * p["D_head"][None, None, :, None].to(x.dtype)
+    y = gated_rms_norm(y.reshape(B_, S, di), z, p["norm_scale"], G,
+                       dims.norm_eps)
+    return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+
+
 def mamba2_forward(p, x, dims: SSMDims, backend: str = "auto"):
     """Full-sequence Mamba-2 block. x: [B,S,D] -> [B,S,D]. ``backend`` is
     passed to ``ssd_scan_op`` for CUDA tensors."""
+    if dims.ngroups:
+        return _mamba2_grouped_forward(p, x, dims, backend)
     B_, S, _ = x.shape
     H, P, N = dims.n_heads, dims.head_dim, dims.d_state
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"])
@@ -319,6 +381,8 @@ def mamba2_forward(p, x, dims: SSMDims, backend: str = "auto"):
 def mamba2_decode(p, x, dims: SSMDims, h, conv_buf):
     """One-token SSD recurrence. x: [B,1,D]; h: [B,H,P,N] f32; conv_buf:
     [B,d_conv-1,di]. Returns (out [B,1,D], h, conv_buf)."""
+    if dims.ngroups:
+        raise NotImplementedError("decode of the grouped Mamba-2 mixer")
     B_ = x.shape[0]
     H, P, N = dims.n_heads, dims.head_dim, dims.d_state
     xz = torch.einsum("bsd,de->bse", x, p["in_proj"])

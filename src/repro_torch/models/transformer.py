@@ -7,7 +7,9 @@ the encoder-decoder (seamless-m4t-medium: a bidirectional encoder over
 ``batch["media"]``, a causal decoder with cross-attention to its output),
 the SSM family (falcon-mamba-7b: Mamba-1 blocks) and the hybrid family
 (zamba2-7b: groups of Mamba-2 blocks, each group followed by one shared
-attention block), with the full-sequence forward and single-token decode.
+attention block), with the full-sequence forward and single-token decode;
+and, with no JAX counterpart, the published Zamba2 layout
+(zamba2-7b-instruct, ``models/zamba2_layout.py``), forward only.
 
 The JAX package stacks its layer parameters on leading axes and scans
 them; the port keeps one module per layer in ``nn.ModuleList``s and runs
@@ -22,7 +24,16 @@ wg/wu/wd]`` (the JAX ``stack``); a MoE model's leading dense layers
 ``enc_layers.<i>.…`` and ``dec_layers.<i>.…`` (``enc_stack``,
 ``dec_stack``), a decoder layer with ``xattn.wq/wk/wv/wo`` and ``ln_x``;
 per SSM block ``ssm_stack.<i>.ln`` and ``ssm_stack.<i>.ssm.<leaf>``; for
-the hybrid ``groups.<g>.<j>.…``, ``tail.<r>.…`` and ``shared_attn.…``.
+the hybrid ``groups.<g>.<j>.…``, ``tail.<r>.…`` and ``shared_attn.…``;
+the published Zamba2 layout ``mamba_layers.<i>.ln`` and ``.ssm.<leaf>``
+(the grouped mixer), ``shared.<b>.ln1`` (over [x, embedding]),
+``attn.wq/wk/wv/wo``, ``ln2`` and ``mlp.wg/wu/wd``, per call
+``adapters.<k>.wa/wg/wu`` and ``hybrid_linear.<k>``.
+
+The published layout's forward keeps spans (``obs/profile.py``):
+``model/mamba2`` around each Mamba-2 layer (its norm, mixer and residual)
+and ``model/shared_block`` around each call's shared block and its
+``linear``; with no timer active a span is one list check.
 
 Causal self-attention goes through the flash-attention kernel and its
 decode through the flash-decode kernel on the card; MLA, the encoder's
@@ -50,10 +61,12 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     AttnDims,
     MLADims,
+    adapted_mlp,
     attention,
     attention_decode,
     cross_attention,
     drawing,
+    init_adapter,
     init_attention,
     init_mla,
     init_mlp,
@@ -65,6 +78,8 @@ from repro_torch.models.layers import (
     softcap,
 )
 from repro_torch.models.moe import MoE
+from repro_torch.models.zamba2_layout import is_published, mamba_ngroups
+from repro_torch.obs.profile import span
 from repro_torch.models.ssm import (
     SSMDims,
     init_ssm,
@@ -74,6 +89,12 @@ from repro_torch.models.ssm import (
     mamba2_forward,
 )
 
+#: why the published Zamba2 layout does not decode
+_NO_PUBLISHED_DECODE = ("decode of the published Zamba2 layout: flash_decode "
+                        "at head dim 224 and a grouped Mamba-2 decode are "
+                        "not written")
+
+
 def _attn_dims(cfg: ModelConfig) -> AttnDims:
     return AttnDims(
         n_heads=cfg.n_heads,
@@ -81,6 +102,8 @@ def _attn_dims(cfg: ModelConfig) -> AttnDims:
         head_dim=cfg.head_dim,
         rope_theta=cfg.rope_theta,
         attn_softcap=cfg.attn_logit_softcap,
+        # Zamba2Attention's scale in the published layout
+        scale=(cfg.head_dim / 2) ** -0.5 if is_published(cfg) else None,
     )
 
 
@@ -104,6 +127,8 @@ def _ssm_dims(cfg: ModelConfig, version: int | None = None) -> SSMDims:
         version=cfg.mamba_version if version is None else version,
         head_dim=cfg.ssm_head_dim,
         chunk=cfg.ssm_chunk,
+        ngroups=mamba_ngroups(cfg),
+        norm_eps=cfg.norm_eps,
     )
 
 
@@ -272,8 +297,11 @@ class SSMBlock(nn.Module):
         self.ln = _zeros_param(cfg.d_model, dtype, device)
         self.ssm = _params(init_ssm(gen, self.dims, dtype, device))
 
-    def forward(self, x, cfg: ModelConfig, backend: str):
-        h = spmd.settle_grad(rms_norm(x, self.ln, cfg.norm_eps))
+    def forward(self, x, cfg: ModelConfig, backend: str, add=None):
+        """``add`` (a hybrid call's output) joins the mixer's input, not
+        the residual."""
+        h = x if add is None else x + add
+        h = spmd.settle_grad(rms_norm(h, self.ln, cfg.norm_eps))
         fwd = mamba1_forward if self.dims.version == 1 else mamba2_forward
         return x + spmd.settle(fwd(self.ssm, h, self.dims, backend))
 
@@ -287,6 +315,30 @@ class SSMBlock(nn.Module):
         h_state.copy_(h_new)
         conv_buf.copy_(conv_new)
         return x + spmd.settle(out)
+
+
+class SharedBlock(nn.Module):
+    """One shared block of the published Zamba2 layout: the RMS norm of
+    [x, embedding] (``attention_hidden_size`` wide), attention back to
+    ``d_model``, an RMS norm, and the gated MLP with the call's adapter;
+    no residual."""
+
+    def __init__(self, cfg: ModelConfig, gen, dtype, device):
+        super().__init__()
+        D = cfg.d_model
+        self.ln1 = _zeros_param(cfg.attention_hidden_size, dtype, device)
+        self.attn = _params(init_attention(
+            gen, cfg.attention_hidden_size, _attn_dims(cfg), False, dtype,
+            device, d_out=D))
+        self.ln2 = _zeros_param(D, dtype, device)
+        self.mlp = _params(init_mlp(gen, D, cfg.d_ff, dtype, device))
+
+    def forward(self, x, emb, adapter, cfg: ModelConfig, positions,
+                backend: str):
+        h = rms_norm(torch.cat([x, emb], dim=-1), self.ln1, cfg.norm_eps)
+        h = attention(self.attn, h, _attn_dims(cfg), positions, -1, backend)
+        h = rms_norm(h, self.ln2, cfg.norm_eps)
+        return adapted_mlp(self.mlp, adapter, h, cfg.act)
 
 
 class Model(nn.Module):
@@ -331,6 +383,20 @@ class Model(nn.Module):
             self.ssm_stack = nn.ModuleList(
                 SSMBlock(cfg, cfg.mamba_version, gen, dt, device)
                 for _ in range(cfg.n_layers))
+        elif is_published(cfg):
+            self.mamba_layers = nn.ModuleList(
+                SSMBlock(cfg, 2, gen, dt, device)
+                for _ in range(cfg.n_layers))
+            self.shared = nn.ModuleList(
+                SharedBlock(cfg, gen, dt, device)
+                for _ in range(cfg.num_mem_blocks))
+            calls = len(cfg.hybrid_layer_ids)
+            self.adapters = nn.ModuleList(
+                _params(init_adapter(gen, D, cfg.d_ff, cfg.adapter_rank, dt,
+                                     device)) for _ in range(calls))
+            self.hybrid_linear = nn.ParameterList(
+                nn.Parameter(normal_init(gen, (D, D), D ** -0.5, dt, device),
+                             requires_grad=False) for _ in range(calls))
         elif cfg.arch_type == "hybrid":
             g = cfg.shared_attn_every
             n_groups, rem = divmod(cfg.n_layers, g)
@@ -436,6 +502,8 @@ class Model(nn.Module):
         if cfg.arch_type == "ssm":
             for block in self.ssm_stack:
                 x = run(block, x, cfg, backend)
+        elif is_published(cfg):
+            x = self._published_hybrid(x, positions, run)
         elif cfg.arch_type == "hybrid":
             def group_body(h, group):
                 for block in group:
@@ -467,6 +535,27 @@ class Model(nn.Module):
                 if aux is not None:
                     aux_total = aux_total + aux
         return self._logits(x), aux_total
+
+    def _published_hybrid(self, x, positions, run):
+        """The Mamba-2 layers in order; before layer ``hybrid_layer_ids[k]``
+        shared block ``k % num_mem_blocks`` runs over [x, the embedding]
+        with adapter k, and its output through ``hybrid_linear[k]`` joins
+        that layer's mixer input."""
+        cfg, backend = self.cfg, self.backend
+        emb = x
+        call = {layer: k for k, layer in enumerate(cfg.hybrid_layer_ids)}
+        for i, block in enumerate(self.mamba_layers):
+            add = None
+            if i in call:
+                k = call[i]
+                with span("model/shared_block", device=x.device):
+                    t = run(self.shared[k % cfg.num_mem_blocks], x, emb,
+                            self.adapters[k], cfg, positions, backend)
+                    add = torch.einsum("bsd,de->bse", t,
+                                       self.hybrid_linear[k])
+            with span("model/mamba2", device=x.device):
+                x = run(block, x, cfg, backend, add=add)
+        return x
 
     # -- loss -----------------------------------------------------------------
 
@@ -507,6 +596,8 @@ class Model(nn.Module):
         ``v`` [L,B,S,K,hd], and for the encoder-decoder the encoder
         ``memory`` [B,S//4,D]. Caches in the model dtype."""
         cfg = self.cfg
+        if is_published(cfg):
+            raise NotImplementedError(_NO_PUBLISHED_DECODE)
         dev = self.embed.device
         dt = getattr(torch, cfg.dtype)
         B, S = batch, seq_len
@@ -554,6 +645,8 @@ class Model(nn.Module):
         returns new ones; a copy of a multi-GB cache per step would
         dominate the step); ``pos`` is replaced by ``pos + 1``. The returned dict holds the same tensors."""
         cfg, backend = self.cfg, self.backend
+        if is_published(cfg):
+            raise NotImplementedError(_NO_PUBLISHED_DECODE)
         pos = state["pos"]
         x = embed_lookup(self.embed, tokens)[:, None, :]   # [B,1,D]
         if cfg.arch_type == "ssm":
